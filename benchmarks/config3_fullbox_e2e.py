@@ -9,11 +9,11 @@ orbits + membership churn; nothing is pre-staged, the loader computes
 each snapshot on demand exactly like a real Gadget reader would read
 it), and cross-checks a subsample of halos against the NumPy oracle.
 
-Scale defaults target a few-minute tunneled run; pass the full-box
-figures explicitly for the real measurement, e.g.:
+Scale defaults target a few-minute run; pass the full-box figures
+explicitly for the real measurement, e.g.:
 
   python benchmarks/config3_fullbox_e2e.py --halos 1020 --cap 65536 \
-      --snaps 6            # 67M tracked particles (single-chip ceiling)
+      --snaps 6            # 67M tracked particles
   python benchmarks/config3_fullbox_e2e.py --mesh   # halo-sharded mesh
 """
 

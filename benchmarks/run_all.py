@@ -2,9 +2,9 @@
 
 Produces a markdown table (stdout) + JSON-lines (``--json FILE``) for:
 
-- fused orbit step via the compact-event scan (the bench.py headline)
+- orbit step via the compact-event scan (the bench.py headline)
 - NumPy reference-style baseline (clean-room, per-halo loop)
-- direct N-body forces: Gram (jnp) vs blocked Pallas kernel
+- direct N-body forces: Gram (jnp) vs the blocked form the policy picks
 - PM solver at several grid sizes
 - host packing: NumPy scatter vs native C++ packer
 
@@ -27,14 +27,14 @@ sys.path.insert(0, ".")  # repo root (bench.py helpers)
 import bench as headline  # noqa: E402
 
 
-def timed(fn, fetch, repeats=3):
-    fn()  # warm-up / compile
-    fetch()
+def timed(fn, repeats=3):
+    import jax
+
+    jax.block_until_ready(fn())  # warm-up / compile
     best = float("inf")
     for _ in range(repeats):
         t0 = time.perf_counter()
-        fn()
-        fetch()
+        jax.block_until_ready(fn())
         best = min(best, time.perf_counter() - t0)
     return best
 
@@ -49,7 +49,7 @@ def main():
     import jax.numpy as jnp
 
     platform = jax.devices()[0].platform
-    small = args.small or platform != "tpu"
+    small = args.small or platform != "gpu"
     rows = []
 
     def emit(name, value, unit, detail=""):
@@ -60,7 +60,7 @@ def main():
     print("| benchmark | value | unit | detail |")
     print("|---|---|---|---|")
 
-    # ---- headline: fused step scan ----------------------------------
+    # ---- headline: orbit step scan -----------------------------------
     H, P, S = (8, 2048, 8) if small else (64, 32768, 16)
     seq = headline.make_sequence(H, P, S)
     ups, events, t = headline.device_updates_per_s(*seq)
@@ -73,22 +73,24 @@ def main():
     emit("numpy reference loop", b_ups, "updates/s", "clean-room baseline")
 
     # ---- N-body forces ----------------------------------------------
-    from orbitanalysis_tpu.models.nbody import direct_forces
-    from orbitanalysis_tpu.ops.pallas_nbody import direct_forces_pallas
+    from orbitanalysis_tpu.models.nbody import (
+        direct_forces,
+        make_direct_force_fn,
+    )
+    from orbitanalysis_tpu.policy import direct_force_impl
 
     n = 4096 if small else 16384
     rng = np.random.default_rng(0)
     pos = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
     mass = jnp.asarray(rng.uniform(0.5, 2.0, n).astype(np.float32))
     jf = jax.jit(lambda: jnp.sum(direct_forces(pos, mass, softening=0.1)))
-    t_g = timed(jf, lambda: float(jf()))
+    t_g = timed(jf)
     emit("direct forces (gram)", n * n / t_g, "pair/s", f"N={n}")
-    if platform == "tpu":
-        pf = jax.jit(
-            lambda: jnp.sum(direct_forces_pallas(pos, mass, softening=0.1))
-        )
-        t_p = timed(pf, lambda: float(pf()))
-        emit("direct forces (pallas)", n * n / t_p, "pair/s", f"N={n}")
+    blocked = make_direct_force_fn(use_pallas=True)
+    pf = jax.jit(lambda: jnp.sum(blocked(pos, mass, softening=0.1)))
+    t_p = timed(pf)
+    emit(f"direct forces (blocked, {direct_force_impl()})", n * n / t_p,
+         "pair/s", f"N={n}")
 
     # ---- PM solver --------------------------------------------------
     from orbitanalysis_tpu.models.pm import pm_forces
@@ -103,7 +105,7 @@ def main():
     pmf = jax.jit(
         lambda: jnp.sum(pm_forces(posm, massm, grid, box))
     )
-    t_pm = timed(pmf, lambda: float(pmf()))
+    t_pm = timed(pmf)
     emit("pm solver", n_pm / t_pm, "particle/s", f"N={n_pm} grid={grid}^3")
 
     # ---- host packing -----------------------------------------------

@@ -7,10 +7,8 @@ counts — the scaling curve the round-2 review asked for alongside the
 sustained metric.  Each point runs in a subprocess so OMP_NUM_THREADS
 binds before libgomp initializes.
 
-On this sandbox ``nproc`` is 1, so the curve is flat by construction —
-the single-core number is the one that matters here (see BASELINE.md
-for the DRAM-floor analysis); on a real multi-core TPU host the same
-binary scales over rows.
+On a one-core host the curve is flat by construction; on a multi-core
+host the same binary scales over rows.
 
 Usage: python benchmarks/staging_scale.py [--threads 1,2,4,8]
 """

@@ -1,4 +1,4 @@
-"""On-the-fly orbit tracking inside a native TPU N-body run.
+"""On-the-fly orbit tracking inside a native on-device N-body run.
 
 BASELINE.json configs[3]: the integrator evolves the system with KDK
 leapfrog while the apsis detector runs every ``detect_every`` force

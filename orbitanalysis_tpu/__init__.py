@@ -1,11 +1,12 @@
-"""orbitanalysis_tpu — a TPU-native orbit-tracking framework.
+"""orbitanalysis_tpu — an accelerator-native orbit-tracking framework.
 
 A ground-up re-design of the capabilities of ``s-balu/nbody-orbit-analysis``
 (pericenter/apocenter detection for particles orbiting halos in cosmological
-N-body simulations) built for TPU hardware: JAX/XLA for the compute path,
-padded static-shape state resident in HBM, sorted-join ID matching on the
-sort unit, ``lax.scan`` over the snapshot time axis, and ``jax.sharding``
-over device meshes for scale-out.
+N-body simulations) for a GPU: JAX/XLA for the compute path, padded
+static-shape state resident in device memory, host-staged stable
+layouts or sort-merge joins for ID matching, ``lax.scan`` over the
+snapshot time axis, and ``jax.sharding`` over device meshes for
+scale-out.
 
 Public API (mirrors and extends the reference surface,
 ``/root/reference/orbitanalysis/__init__.py``):

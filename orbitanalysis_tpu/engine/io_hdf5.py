@@ -20,8 +20,15 @@ from __future__ import annotations
 import os
 import time
 
-import h5py
 import numpy as np
+
+
+def h5file(*args, **kwargs):
+    """``h5py.File`` with h5py imported where a file is opened: the
+    package and its device path need only jax and numpy."""
+    import h5py
+
+    return h5py.File(*args, **kwargs)
 
 
 def apsis_tag(mode: str) -> str:
@@ -59,7 +66,7 @@ def normalize_mode_savefiles(mode, savefile):
 
 def initialize_savefile(savefile, mode, box_size, verbose=True):
     os.makedirs(os.path.dirname(os.path.abspath(savefile)), exist_ok=True)
-    with h5py.File(savefile, "w") as hf:
+    with h5file(savefile, "w") as hf:
         hf.attrs["mode"] = mode
         if box_size is not None:
             hf.attrs["box_size"] = box_size
@@ -85,7 +92,7 @@ def append_snapshot(
     if verbose:
         print("Saving to file...")
         t0 = time.time()
-    with h5py.File(savefile, "r+") as hf:
+    with h5file(savefile, "r+") as hf:
         g = hf.create_group("snapshot_%03d" % snapshot_number)
         g.create_dataset("region_offsets", data=np.asarray(apsis_offsets))
         g.create_dataset(apsis_tag(mode) + "_IDs", data=np.asarray(apsis_ids))
@@ -115,7 +122,7 @@ def write_checkpoint(savefile, angles, snapshot_number,
     layout would re-place particles and perturb the bulk-velocity
     reduction order by ~1 ulp).
     """
-    with h5py.File(savefile + ".checkpoint", "w") as hf:
+    with h5file(savefile + ".checkpoint", "w") as hf:
         hf.create_dataset("angles", data=np.asarray(angles, dtype=angle_store_dtype))
         if layout_positions is not None:
             hf.create_dataset(
@@ -126,7 +133,7 @@ def write_checkpoint(savefile, angles, snapshot_number,
 
 
 def read_checkpoint(savefile, with_layout=False):
-    with h5py.File(savefile + ".checkpoint", "r") as hf:
+    with h5file(savefile + ".checkpoint", "r") as hf:
         angles = hf["angles"][:]
         snap = int(hf.attrs.get("snapshot_number", -1))
         if with_layout:
@@ -141,7 +148,7 @@ def read_checkpoint(savefile, with_layout=False):
 def last_snapshot_number(savefile) -> int:
     """Resume anchor: number of the last written snapshot group
     (``track_orbits.py:93-99``)."""
-    with h5py.File(savefile, "r") as hf:
+    with h5file(savefile, "r") as hf:
         nums = sorted(
             int(k.split("_")[1])
             for k in hf.keys()

@@ -24,12 +24,12 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-import h5py
 import jax
 import numpy as np
 
 from orbitanalysis_tpu.engine.io_hdf5 import (
     apsis_tag,
+    h5file,
     normalize_mode_savefiles,
 )
 from orbitanalysis_tpu.engine.packing import pack_snapshot, required_capacity
@@ -183,7 +183,7 @@ def _save(
         print("Saving to file...")
         t0 = time.time()
     tag = apsis_tag(mode)
-    with h5py.File(savefile.format("%0.3d" % snapshot_number), "w") as hf:
+    with h5file(savefile.format("%0.3d" % snapshot_number), "w") as hf:
         hf.create_dataset(tag + "_offsets", data=apsis_offsets)
         hf.create_dataset(tag + "_IDs", data=apsis_ids)
         hf.create_dataset("angles", data=angle_changes)

@@ -4,7 +4,7 @@ The reference walks the snapshot axis with a host Python loop, reloading
 state each iteration (``/root/reference/orbitanalysis/track_orbits.py:104``).
 The time axis is a true dependency chain (each step consumes the previous
 step's per-particle state, ``track_orbits.py:234-240``), so the TPU-native
-formulation is a ``lax.scan`` with the per-particle carry resident in HBM
+formulation is a ``lax.scan`` with the per-particle carry resident on device
 and the snapshot stack either pre-staged in HBM or fed per-step by the
 host pipeline in :mod:`orbitanalysis_tpu.engine.tracker`.
 
@@ -107,30 +107,20 @@ def scan_events_sorted(
     mode: str = "pericentric",
     box_size=None,
     id_dtype=jnp.int32,
-    merge_impl: str = "lax_sort",
-    compact_impl: str = "lax_sort",
-    cur_presorted: bool = False,
-    fused: bool = False,
     soa_batch: bool = False,
 ):
     """Sorted-carry variant of :func:`scan_events_compact` — identical
-    compact event stream, one fewer sort per step; with
-    ``merge_impl="pallas"`` the merge sort becomes a VMEM-resident
-    bitonic merge and with ``compact_impl="pallas"`` the carry/event
-    extraction becomes a log-shift compaction kernel.  With snapshots
-    staged ID-sorted (``ops.sorted_step.presort_snapshot``), pass
-    ``cur_presorted=True`` and the per-step cur-side sort disappears
-    too; staged SoA (``presort_snapshot(..., soa=True)``), pass
-    ``soa_batch=True`` and the per-step AoS transpose disappears as
-    well.  ``carry`` is a
+    compact event stream, one fewer sort per step.  Staged SoA
+    (``ops.sorted_step.presort_snapshot(..., soa=True)``), pass
+    ``soa_batch=True`` and the per-step AoS transpose disappears.
+    ``carry`` is a
     :class:`orbitanalysis_tpu.ops.sorted_step.SortedCarry`.
     """
     from orbitanalysis_tpu.ops.sorted_step import make_sorted_orbit_step
 
     step = make_sorted_orbit_step(
         event_capacity, mode=mode, box_size=box_size, id_dtype=id_dtype,
-        merge_impl=merge_impl, compact_impl=compact_impl,
-        cur_presorted=cur_presorted, fused=fused, soa_batch=soa_batch,
+        soa_batch=soa_batch,
     )
 
     def body(c, s):
@@ -165,15 +155,11 @@ def scan_events_aligned(
     tracker does).  Event angles are quantized to float16 at the
     device boundary (the savefile's storage dtype) — that is what lets
     the whole event ride one u32 payload word through the compaction
-    network (:func:`orbitanalysis_tpu.ops.pallas_compact.
-    compact_payload`).
+    (:func:`orbitanalysis_tpu.ops.compact.compact_payload`).
 
     ``batched=False`` (default) runs the per-step ``lax.scan`` over
     :func:`~orbitanalysis_tpu.ops.sorted_step.make_aligned_native_step`
-    — the fastest form measured on TPU (33 ms/scan at H=64 P=32768
-    S=48, 2.7e9 updates/s/chip: the carry planes stay VMEM/HBM-hot
-    across iterations and XLA fuses each step into a few passes over
-    ``[H, P]`` planes).
+    (XLA fuses each step into a few passes over ``[H, P]`` planes).
 
     ``batched=True`` exploits the aligned engine's key structural
     property at the *sequence* level: apsis detection depends only on
@@ -189,18 +175,12 @@ def scan_events_aligned(
       3. the only true time dependency — the angle accumulator — as a
          ``lax.scan`` whose carry is a SINGLE ``[H, P]`` plane reading
          precomputed ``dtheta``/reset slices (a few MB per iteration);
-      4. ONE :func:`~orbitanalysis_tpu.ops.pallas_compact.compact_payload`
-         launch over all ``S*H`` rows — one kernel dispatch per
-         sequence instead of per snapshot.
+      4. ONE :func:`~orbitanalysis_tpu.ops.compact.compact_payload`
+         over all ``S*H`` rows.
 
-    One kernel dispatch per sequence instead of per snapshot, and it
-    compiles ~40x faster (1.9 s vs 72 s at bench shape — no per-step
-    Mosaic specialization), but it is ~2.2x SLOWER to execute
-    (74.5 ms/scan at the same shape): the ~18 materialized ``[S, H,
-    P]`` planes turn a carry-resident recurrence into HBM-bandwidth-
-    bound streaming.  Use it for one-off scans where compile time
-    dominates (short sequences, exploratory runs); the tracker and
-    bench use the default.
+    It materializes ~18 ``[S, H, P]`` planes, so it trades memory
+    traffic for the absence of a per-step loop; the tracker and the
+    benchmarks use the default.
     """
     if not batched:
         from orbitanalysis_tpu.ops.sorted_step import (
@@ -231,12 +211,12 @@ def scan_events_aligned(
             "'pericentric' or 'apocentric'."
         )
     from orbitanalysis_tpu.ops.geometry import region_frame
-    from orbitanalysis_tpu.ops.pallas_compact import (
+    from orbitanalysis_tpu.ops.compact import (
         PAYLOAD_MAX_ROW,
-        compact_payload_blocked,
+        compact_payload,
         compact_payload_pair,
     )
-    from orbitanalysis_tpu.ops.pallas_step import _acos_f32
+    from orbitanalysis_tpu.utils.numerics import acos_f32
     from orbitanalysis_tpu.ops.sorted_step import (
         AlignedCarry,
         _vr_bits,
@@ -310,7 +290,7 @@ def scan_events_aligned(
     cosang = jnp.clip(
         jnp.concatenate([cos0[None], cos_rest], axis=0), -1.0, 1.0
     )
-    dtheta = jnp.where(live, _acos_f32(cosang), 0.0)
+    dtheta = jnp.where(live, acos_f32(cosang), 0.0)
     prev_vrb = jnp.concatenate(
         [((carry.sv >> 24) & 3)[None], vrb[:-1]], axis=0
     )
@@ -336,12 +316,10 @@ def scan_events_aligned(
         body, ang0, (dtheta, fresh, apsis, valid)
     )
 
-    # one compaction launch over all S*H rows — a single u32 payload
-    # word per event (see compact_payload): position + f16 angle; the
-    # key/prev-sv channels disappeared with the positional contract.
-    # Rows wider than PAYLOAD_MAX_ROW (the 131072 fused ceiling) take
-    # the two-stream pair kernel: pos + 1 = 2**17 would wrap the
-    # single word to zero and silently drop the last row's events.
+    # one compaction over all S*H rows — a single u32 payload word per
+    # event (see compact_payload): position + f16 angle.  Rows wider
+    # than PAYLOAD_MAX_ROW take the two-word format: pos + 1 = 2**17
+    # would wrap the single word to zero and drop the last position.
     pos_iota = jax.lax.broadcasted_iota(jnp.int32, (S, H, P), 2)
     ang15 = jax.lax.bitcast_convert_type(
         ev_ang.astype(jnp.float16), jnp.uint16
@@ -352,14 +330,14 @@ def scan_events_aligned(
             ((pos_iota + 1).astype(jnp.uint32) << 15) | ang15,
             jnp.uint32(0),
         )
-        evpay = compact_payload_blocked(payload.reshape(S * H, P), k_eff)
+        evpay, _ = compact_payload(payload.reshape(S * H, P), k_eff)
         ev_pos = (evpay >> 15).astype(jnp.int32) - 1
         ev_ang_bits = evpay & jnp.uint32(0x7FFF)
     else:
         posw = jnp.where(
             apsis, (pos_iota + 1).astype(jnp.uint32), jnp.uint32(0)
         )
-        evposw, ev_ang_bits = compact_payload_pair(
+        evposw, ev_ang_bits, _ = compact_payload_pair(
             posw.reshape(S * H, P), ang15.reshape(S * H, P), k_eff
         )
         ev_pos = evposw.astype(jnp.int32) - 1

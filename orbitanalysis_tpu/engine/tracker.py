@@ -1,6 +1,6 @@
 """Offline multi-snapshot orbit tracking — the primary entry point.
 
-TPU-native re-design of the reference driver
+Accelerator-native re-design of the reference driver
 (``/root/reference/orbitanalysis/track_orbits.py:9-244``).  The user-facing
 contract is kept: the same ``regions`` / ``load_snapshot_data`` callback
 pair (``track_orbits.py:27-61``), the same savefile schema, the same
@@ -50,9 +50,7 @@ from orbitanalysis_tpu.ops.apsis import (
     make_static_orbit_step,
 )
 from orbitanalysis_tpu.ops.sorted_step import (
-    AUTO_FUSED_CAPACITY,
-    MAX_ALIGNED_CAPACITY,
-    MAX_FUSED_CAPACITY,
+    MAX_ROW_CAPACITY,
     AlignedCarry,
     SortedCarry,
     decode_aligned_carry,
@@ -235,8 +233,8 @@ class _DeviceEngine:
         # on-device event compaction: hosts fetch [H, K] event lists
         # instead of [H, P] masks; K sized for the rare-event regime with
         # a full-mask fallback on overflow.  The sorted engine sizes its
-        # kernel event buffer to the full capacity (overflow-free) and
-        # fetches count-bounded slices instead.
+        # event buffer to the full capacity (overflow-free) and fetches
+        # count-bounded slices instead.
         self.event_capacity = min(
             event_capacity
             if event_capacity is not None
@@ -268,14 +266,14 @@ class _DeviceEngine:
             and "particles" in sharding.axis_names
         ):
             raise ValueError(
-                f"join_impl={join!r} shards the halo axis only (the fused "
-                "kernel needs whole particle rows in VMEM); use a mesh "
+                f"join_impl={join!r} shards the halo axis only (the step "
+                "needs whole particle rows per device); use a mesh "
                 "without a 'particles' axis or join_impl='general'"
             )
         self._steps = {}
         if join == "aligned":
             # carry-native: 32-bit IDs / f32 angles enforced at step
-            # construction; the channels are packed kernel formats
+            # construction; the channels are packed formats
             self.carry = self._place(init_aligned_carry(n_halos, capacity))
         else:
             init = init_sorted_carry if join == "sorted" else init_carry
@@ -295,20 +293,16 @@ class _DeviceEngine:
                static)
         if key not in self._steps:
             if self.join == "sorted":
-                # fused Pallas kernel; event buffer sized to capacity so
-                # it can never overflow (hosts fetch count-bounded
-                # slices); events in ID order + load slots
+                # event buffer sized to capacity so it can never
+                # overflow (hosts fetch count-bounded slices); events
+                # come back in previous-snapshot load order
                 kw = dict(
                     mode=self.mode,
                     box_size=self.box_size,
                     id_dtype=self.id_dtype,
                     angle_dtype=self.angle_dtype,
-                    fused=True,
-                    cur_presorted=True,
-                    events_id_order=True,
                 )
                 if self.sharding is not None:
-                    # a pallas_call is opaque to jit's SPMD partitioner:
                     # the mesh path is an explicit halo-axis shard_map
                     from orbitanalysis_tpu.parallel.sorted_sharded import (
                         make_sharded_sorted_step,
@@ -319,24 +313,18 @@ class _DeviceEngine:
                 else:
                     raw = make_sorted_orbit_step(self.capacity, **kw)
             elif self.join == "aligned":
-                # stable-layout staging: no device-side join at all —
-                # churn runs at the static kernel's speed.  The event
-                # buffer is BOUNDED (self.event_capacity, default
-                # capacity//16): small enough that the two-stage
-                # blocked compaction fast path applies (k128 must fit
-                # the block fronts, pallas_compact.py — at full
-                # capacity the kernel falls back to the 15-pass
-                # single-stage network, ~3x the extract cost), and
-                # overflow is lossless anyway: the step also emits the
-                # full pre-compaction payload plane, from which the
-                # writer recovers every event exactly and then grows
-                # the event capacity for subsequent snapshots.
+                # stable-layout staging: no device-side join at all.
+                # The event buffer is BOUNDED (self.event_capacity,
+                # default capacity//16), and overflow is lossless: the
+                # step also emits the full pre-compaction payload
+                # plane, from which the writer recovers every event
+                # exactly and then grows the event capacity for
+                # subsequent snapshots.
                 kw = dict(
                     mode=self.mode,
                     box_size=self.box_size,
                     id_dtype=self._dev_id_dtype,
                     angle_dtype=self.angle_dtype,
-                    events_id_order=True,
                     emit_payload=True,
                 )
                 if self.sharding is not None:
@@ -365,21 +353,13 @@ class _DeviceEngine:
     def grow(self, new_capacity):
         """Re-pad the carry's particle axis (rare; triggers a re-jit)."""
         if self.join in ("sorted", "aligned"):
-            # bitonic merge network / static kernel: row length must be
-            # a power of two.  The aligned engine's default xla detect
-            # is elementwise (only the 2-3-stream compaction kernel
-            # enters VMEM), so its ceiling is far above the 10-stream
-            # merge kernel's — the big-halo x wide-ID exit.
+            # power-of-two rows: growth re-jits at few distinct shapes
             new_capacity = max(round_up_pow2(new_capacity), 128)
-            limit = (
-                MAX_ALIGNED_CAPACITY if self.join == "aligned"
-                else MAX_FUSED_CAPACITY
-            )
-            if new_capacity > limit:
+            if new_capacity > MAX_ROW_CAPACITY:
                 raise ValueError(
                     f"region growth needs capacity {new_capacity}, beyond "
                     f"the {self.join} engine's per-row ceiling "
-                    f"({limit}); re-run with "
+                    f"({MAX_ROW_CAPACITY}); re-run with "
                     "join_impl='general' (resume=True continues from the "
                     "savefile)"
                 )
@@ -469,9 +449,8 @@ class _DeviceEngine:
 
     def to_general(self, new_capacity: int, layout_ids=None):
         """Convert this sorted/aligned engine into a fresh general
-        engine at ``new_capacity`` — the capacity-growth path that costs
-        an XLA compile (seconds) instead of a fused-kernel Mosaic re-jit
-        (minutes).  The carry is scattered back from its device layout
+        engine at ``new_capacity`` (the ``grow_impl='general'`` growth
+        path).  The carry is scattered back from its device layout
         (ID-sorted / stable-position) to load-slot layout via the slot
         permutation; the radial-velocity sign bits become ±1.0
         placeholders (detection only ever compares signs,
@@ -784,7 +763,7 @@ def track_orbits(
         (``track_orbits.py:311-314``; the reference needs two full runs
         for BASELINE config 3's peri+apo catalogs).
 
-    TPU-specific additions:
+    Additions over the reference:
 
     capacity : int, optional
         Particle-axis capacity per halo row. Default: sized from the first
@@ -823,23 +802,21 @@ def track_orbits(
         Capture a ``jax.profiler`` trace of the whole run into this
         directory (view in TensorBoard/Perfetto).
     join_impl : {'auto', 'general', 'sorted', 'aligned'}
-        Snapshot-join implementation.  ``'sorted'`` packs halo rows
-        ID-sorted on the host and runs the fused Pallas
-        merge+detect+compact kernel (~4x the general step on TPU;
-        savefile output is identical).  ``'aligned'`` goes further: the
-        host staging pipeline assigns every particle a *persistent*
-        row position (:class:`~orbitanalysis_tpu.engine.packing.
-        StableLayout` — survivors keep their position, entrants reuse
-        departures' holes), so consecutive snapshots are element-wise
-        aligned by construction and the device runs **no join at all**
-        — membership churn proceeds at the static-detection kernel's
-        speed (~2x the sorted engine's churn step), with the alignment
-        bookkeeping folded into the host pack phase that the prefetch
-        pipeline overlaps with device compute.  With ``mesh`` both
-        kernels run halo-sharded via ``shard_map`` (halo axis only).
-        ``'auto'`` picks ``'aligned'`` on TPU when its constraints hold
-        (32-bit IDs, f32 angles, no 'particles' mesh axis), else
-        ``'general'``.
+        Snapshot-join implementation (savefile output is identical).
+        ``'general'`` joins prev and cur by ID with sort-merges on
+        device.  ``'sorted'`` packs halo rows ID-sorted on the host and
+        keeps the carry ID-sorted, so one merge sort plus one extraction
+        sort do the join.  ``'aligned'`` goes further: the host staging
+        pipeline assigns every particle a *persistent* row position
+        (:class:`~orbitanalysis_tpu.engine.packing.StableLayout` —
+        survivors keep their position, entrants reuse departures'
+        holes), so consecutive snapshots are element-wise aligned by
+        construction and the device runs **no join at all**, with the
+        alignment bookkeeping folded into the host pack phase that the
+        prefetch pipeline overlaps with device compute.  With ``mesh``
+        both run halo-sharded via ``shard_map`` (halo axis only).
+        ``'auto'`` asks :func:`orbitanalysis_tpu.policy.join_engine`
+        (platform, ID width, angle dtype, mesh axes).
     prefetch : int
         Snapshots to load ahead on a background thread (queue depth).
         The callbacks are still invoked one at a time in snapshot
@@ -847,14 +824,9 @@ def track_orbits(
         device step / savefile write.  ``0`` loads synchronously.
     grow_impl : {'auto', 'keep', 'general'}
         What a mid-run capacity overflow does to a sorted/aligned
-        engine: ``'keep'`` re-jits the fused kernel at the grown
-        capacity (minutes of Mosaic compile for the sorted merge
-        kernel, seconds for the aligned engine's static kernel — the
-        persistent compilation cache amortizes both); ``'general'``
-        converts the carry to the general engine (seconds of XLA
-        compile, slower steps after); ``'auto'`` = 'general' when
-        ``join_impl`` was auto-selected, 'keep' when 'sorted'/'aligned'
-        was requested explicitly.
+        engine: ``'keep'`` (and ``'auto'``) re-jit the same engine at
+        the grown capacity; ``'general'`` converts the carry to the
+        general engine.
     """
     # mode='both': one ingest pass, two catalogs — load/pack/H2D once
     # per snapshot and run both detectors on the staged batch.  Two
@@ -866,7 +838,7 @@ def track_orbits(
     modes, savefiles = io_hdf5.normalize_mode_savefiles(mode, savefile)
     savefile = savefiles[0]  # layout leader (checkpoint layout source)
     # re-jits (capacity growth, restarts, resume) hit disk instead of
-    # paying the multi-minute Mosaic compile again
+    # compiling again
     from orbitanalysis_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
@@ -924,21 +896,12 @@ def track_orbits(
             )
         join_impl = "hash"
     elif join_impl == "auto":
-        idt = np.dtype(id_dtype)
-        # 64-bit IDs qualify too: the aligned layout is positional, so
-        # the device streams a 32-bit position surrogate (no x64, no
-        # 64-bit device sorts) and the host maps event positions back
-        # through the staged wide-ID table
-        join_impl = (
-            "aligned"
-            if (
-                (mesh is None or "particles" not in mesh.axis_names)
-                and jax.default_backend() == "tpu"
-                and idt.itemsize in (4, 8)
-                and np.issubdtype(idt, np.signedinteger)
-                and np.dtype(angle_dtype) == np.float32
-            )
-            else "general"
+        from orbitanalysis_tpu.policy import join_engine
+
+        join_impl = join_engine(
+            id_dtype, angle_dtype,
+            particles_axis=mesh is not None
+            and "particles" in mesh.axis_names,
         )
 
     tstart = time.time()
@@ -1040,7 +1003,7 @@ def track_orbits(
             elif engine.join == "aligned":
                 # positional events: the device returns stable-layout
                 # row positions + f16-exact angles only (one u32 payload
-                # word through the compaction kernel); particle IDs and
+                # word through the compaction); particle IDs and
                 # reference ordering come from the host's staged tables
                 # — the current snapshot's ID table (an event position's
                 # tenant is unchanged since the previous snapshot) and
@@ -1050,7 +1013,7 @@ def track_orbits(
                 counts = ev_count[saved_rows]
                 width = events.ids.shape[1]
                 if int(counts.max(initial=0)) > width:
-                    # The compaction kernel truncated events past the
+                    # The compaction truncated events past the
                     # buffer width while the counts (a full-row sum)
                     # kept them.  Nothing is lost: the step also emits
                     # the full pre-compaction payload plane
@@ -1082,9 +1045,14 @@ def track_orbits(
                                 )[None, :] + 1,
                                 np.uint32(0),
                             )
+                            # clamp like the device's f16_bits_rne:
+                            # past the f16 range it gives 0x7BFF, not inf
                             angw = (
-                                (pw & np.uint32(0x7FFFFFFF))
-                                .view(np.float32)
+                                np.minimum(
+                                    (pw & np.uint32(0x7FFFFFFF))
+                                    .view(np.float32),
+                                    np.float32(65504.0),
+                                )
                                 .astype(np.float16)
                                 .view(np.uint16)
                             )
@@ -1100,9 +1068,7 @@ def track_orbits(
                             np.uint16
                         )
                     ev_angles = ang_bits.view(np.float16).astype(
-                        np.asarray(events.angles).dtype
-                        if hasattr(events.angles, "dtype")
-                        else np.float32
+                        events.angles.dtype
                     )
                     if verbose:
                         print(
@@ -1145,10 +1111,10 @@ def track_orbits(
                 apsis_ids_flat = ev_ids[sel]
                 apsis_angles_flat = ev_angles[sel]
             elif engine.join == "sorted":
-                # overflow-free: the kernel event buffer spans the whole
-                # capacity; fetch a count-bounded slice (rounded to limit
-                # distinct slice shapes) and restore reference order from
-                # the load slots host-side
+                # overflow-free: the event buffer spans the whole
+                # capacity, already in reference (prev load-slot) order;
+                # fetch a count-bounded slice (rounded to limit distinct
+                # slice shapes)
                 counts = ev_count[saved_rows]
                 width = events.ids.shape[1]
                 kf = min(round_up(max(int(counts.max(initial=0)), 1), 256),
@@ -1158,13 +1124,7 @@ def track_orbits(
                         _slice_cols(events.ids, kf))[saved_rows]
                     ev_angles = _fetch_host(
                         _slice_cols(events.angles, kf))[saved_rows]
-                    ev_slots = _fetch_host(
-                        _slice_cols(events.slots, kf))[saved_rows]
                 sel = np.arange(kf)[None, :] < counts[:, None]
-                slot_key = np.where(sel, ev_slots, np.iinfo(np.int32).max)
-                order = np.argsort(slot_key, axis=-1, kind="stable")
-                ev_ids = np.take_along_axis(ev_ids, order, axis=-1)
-                ev_angles = np.take_along_axis(ev_angles, order, axis=-1)
                 apsis_offsets = np.concatenate(([0], np.cumsum(counts)))
                 apsis_ids_flat = ev_ids[sel]
                 apsis_angles_flat = ev_angles[sel]
@@ -1377,29 +1337,9 @@ def track_orbits(
                     cap = max(cap, round_up_pow2(
                         int(resume_layout_flat.max()) + 1
                     ))
-                wide = np.dtype(id_dtype).itemsize == 8
-                if join_impl == "aligned":
-                    # the aligned engine's default xla detect is
-                    # elementwise — only the small compaction kernel
-                    # enters VMEM — so its ceiling sits far above the
-                    # merge kernel's.  Wide-ID runs keep it even under
-                    # 'auto': the general fallback would need 64-bit
-                    # device IDs (x64).
-                    limit = (
-                        MAX_ALIGNED_CAPACITY
-                        if (not join_was_auto) or wide
-                        else AUTO_FUSED_CAPACITY
-                    )
-                else:
-                    limit = (
-                        AUTO_FUSED_CAPACITY if join_was_auto
-                        else MAX_FUSED_CAPACITY
-                    )
-                if cap > limit:
-                    # a whole 2*capacity merged row must fit in VMEM
-                    if join_was_auto and not (
-                        join_impl == "aligned" and wide
-                    ):
+                if cap > MAX_ROW_CAPACITY:
+                    # the packed slot field addresses 2**24 row entries
+                    if join_was_auto and np.dtype(id_dtype).itemsize == 4:
                         join_impl = "general"
                         cap = capacity or required_capacity(
                             lengths, headroom
@@ -1407,7 +1347,7 @@ def track_orbits(
                     else:
                         raise ValueError(
                             f"join_impl={join_impl!r} supports per-halo "
-                            f"capacities up to {limit} "
+                            f"capacities up to {MAX_ROW_CAPACITY} "
                             f"(needed {cap}); use join_impl='general'"
                         )
             engines = [
@@ -1433,33 +1373,21 @@ def track_orbits(
             # pending full-mask fallbacks keep their original shapes
             flush_pending()
             new_cap = required_capacity(lengths, headroom)
-            to_general = engine.join in ("sorted", "aligned") and (
-                grow_impl == "general"
-                or (grow_impl == "auto" and join_was_auto)
-            )
+            to_general = (engine.join in ("sorted", "aligned")
+                          and grow_impl == "general")
             if to_general and engine.surrogate:
-                if grow_impl == "general":
-                    raise ValueError(
-                        "wide (64-bit) particle IDs ride a 32-bit device "
-                        "surrogate on the aligned engine; the general "
-                        "engine would need 64-bit device IDs (x64). Grow "
-                        "in place instead: grow_impl='keep' (the aligned "
-                        "step's re-jit is XLA + a small compaction "
-                        "kernel, seconds not minutes)"
-                    )
-                # auto: growing the aligned engine in place is both the
-                # only x64-free option and cheap (no fused merge kernel
-                # to re-Mosaic on the aligned path)
-                to_general = False
+                raise ValueError(
+                    "wide (64-bit) particle IDs ride a 32-bit device "
+                    "surrogate on the aligned engine; the general "
+                    "engine would need 64-bit device IDs (x64). Grow "
+                    "in place instead: grow_impl='keep'"
+                )
             if to_general:
-                # auto-join contract: never stall a run on a surprise
-                # multi-minute fused-kernel recompile — hand the carry
-                # to the general engine (XLA compiles in seconds)
                 if verbose:
                     print(
                         f"Growing particle capacity {engine.capacity} -> "
-                        f"{new_cap}; switching to the general join engine "
-                        "(avoids a fused-kernel recompile)\n"
+                        f"{new_cap}; switching to the general join "
+                        "engine\n"
                     )
                 converted = [
                     e.to_general(

@@ -1,19 +1,21 @@
-"""Native TPU N-body integrator with fused on-the-fly orbit detection.
+"""Native on-device N-body integrator with fused on-the-fly orbit detection.
 
 The reference's on-the-fly mode (``/root/reference/orbitanalysis/
 track_orbits_onthefly.py:8-58``) is a host-side hook: a running simulation
 dumps two snapshots, the tracker reloads both from disk and cross-matches
-them.  Here the simulation itself is native to the TPU — a leapfrog/KDK
-integrator whose state lives in HBM — and the apsis detector
+them.  Here the simulation itself runs on the accelerator — a
+leapfrog/KDK integrator whose state lives in device memory — and the
+apsis detector
 (:mod:`orbitanalysis_tpu.ops.apsis` semantics) runs *between force
 evaluations at arbitrary cadence* with no host round-trips
 (BASELINE.json configs[3]).
 
-Force evaluation is MXU-native direct summation: with
+Small-N force evaluation is matmul-shaped direct summation: with
 ``d_ij^2 = |x_i|^2 + |x_j|^2 - 2 x_i.x_j``, the dominant terms are two
 ``[N,N]x[N,3]``-shaped matmuls (the Gram matrix and the weighted source
-sum), which XLA tiles onto the systolic array — the O(N^2) kernel runs at
-matmul speed instead of VPU gather speed.
+sum).  Beyond a few 10^4 particles the blocked forms of
+:mod:`orbitanalysis_tpu.ops.pallas_nbody` keep memory O(N), and the PM
+solver (:mod:`orbitanalysis_tpu.models.pm`) takes full boxes.
 
 Because membership of tracked particles in halos is *static* here (a halo
 is a fixed set of particle indices), the detector skips the sorted-join
@@ -75,23 +77,23 @@ def direct_forces(
     G: float = 1.0,
     box_size=None,
 ) -> jnp.ndarray:
-    """Softened direct-summation gravitational acceleration, MXU-shaped.
+    """Softened direct-summation gravitational acceleration.
 
     Non-periodic path uses the Gram-matrix expansion so the two O(N^2)
-    contractions (`pos @ pos.T` and the weighted source reduction) hit the
-    MXU.  The periodic path needs per-pair minimum-image displacements, so
+    contractions (`pos @ pos.T` and the weighted source reduction) are
+    matmuls.  The periodic path needs per-pair minimum-image displacements, so
     it materializes the [N, N, 3] displacement tensor (fine for the
     region-scale N this integrator targets).
     """
     eps2 = jnp.asarray(softening * softening, pos.dtype)
     if box_size is None:
         sq = jnp.sum(pos * pos, axis=-1)                      # [N]
-        # HIGHEST precision: the TPU MXU's default (bf16-pass) matmul
-        # rounding can drive the diagonal d2 slightly negative, which
-        # rsqrt turns into NaN
+        # HIGHEST precision: a reduced-precision matmul (TF32 on the
+        # GPU) can drive the diagonal d2 slightly negative, which rsqrt
+        # turns into NaN
         gram = jnp.matmul(
             pos, pos.T, precision=jax.lax.Precision.HIGHEST
-        )                                                      # MXU [N,N]
+        )                                                      # [N, N]
         d2 = (
             jnp.maximum(sq[:, None] + sq[None, :] - 2.0 * gram, 0.0) + eps2
         )
@@ -114,20 +116,30 @@ def direct_forces(
 def make_direct_force_fn(use_pallas: bool = False):
     """A ``force_fn`` for :func:`simulate_with_tracking`.
 
-    ``use_pallas=True`` selects the blocked Pallas kernel
-    (:mod:`orbitanalysis_tpu.ops.pallas_nbody`): O(N) memory instead of
-    the O(N^2) pair matrix, required beyond a few 10^4 particles; free
-    or periodic (minimum-image in-kernel).  For periodic boxes at full
-    box scale prefer the PM solver
+    ``use_pallas=True`` selects a blocked form with O(N) memory instead
+    of the O(N^2) pair matrix, required beyond a few 10^4 particles;
+    free or periodic (per-pair minimum image):
+    :func:`~orbitanalysis_tpu.ops.pallas_nbody.direct_forces_triton` on
+    the GPU, the plain-XLA
+    :func:`~orbitanalysis_tpu.ops.pallas_nbody.direct_forces_blocked`
+    elsewhere (:func:`orbitanalysis_tpu.policy.direct_force_impl`).
+    For periodic boxes at full box scale prefer the PM solver
     (:func:`orbitanalysis_tpu.models.pm.make_pm_force_fn`).
     """
     if not use_pallas:
         return direct_forces
 
-    from orbitanalysis_tpu.ops.pallas_nbody import direct_forces_pallas
+    from orbitanalysis_tpu.ops.pallas_nbody import (
+        direct_forces_blocked,
+        direct_forces_triton,
+    )
+    from orbitanalysis_tpu.policy import direct_force_impl
+
+    blocked = (direct_forces_triton if direct_force_impl() == "triton"
+               else direct_forces_blocked)
 
     def force(pos, mass, softening=0.05, G=1.0, box_size=None, **_):
-        return direct_forces_pallas(
+        return blocked(
             pos, mass, softening=softening, G=G,
             box_size=None if box_size is None else float(box_size),
         )
@@ -199,8 +211,7 @@ def _halo_frames(state: NBodyState, members, valid, box_size,
 
     ``identity=True`` asserts that ``members`` is ``arange(n)`` reshaped
     — every particle tracked, in order — and replaces the member
-    gathers with free reshapes (TPU gathers cost per index: the three
-    gathers here are most of the detection step's time at 10M+ scale).
+    gathers with free reshapes.
     """
     h, p = members.shape
     if identity:

@@ -13,7 +13,7 @@ of scale ``sigma``:
                |F| = m_i m_j [ erfc(u)/r^2 + sqrt(2/pi) e^{-u^2}/(sigma r) ],
                u = r / (sqrt(2) sigma).
 
-TPU-native short-range structure (no gathers, no neighbour lists):
+Short-range structure (no gathers, no neighbour lists):
 particles are binned on device into a ``[C, C, C, cap]`` cell grid with
 cell size >= r_cut (sort by cell id + rank scatter, zero-mass padding);
 each cell then interacts with its 27 neighbour blocks obtained by
@@ -102,7 +102,9 @@ def short_range_pair_block(tgt_pos, src_pos, src_mass, box_size,
         (r2 < r_cut * r_cut)
         & (r2 > 0)                  # drop self/padded pairs
     ).astype(tgt_pos.dtype) * src_mass[:, None, :]
-    return -jnp.einsum("cts,ctsi->cti", w * mag / r, d)
+    # an elementwise sum, not a contraction: a float32 dot_general may
+    # run in TF32 on the GPU (about three decimal digits)
+    return -jnp.sum((w * mag / r)[..., None] * d, axis=2)
 
 
 def _short_range_forces(cell_pos, cell_mass, c_dims, box_size,

@@ -1,4 +1,4 @@
-"""Particle-mesh (PM) gravity solver: FFT Poisson on the TPU.
+"""Particle-mesh (PM) gravity solver: FFT Poisson on the accelerator.
 
 Scales the on-the-fly integrator to full-box particle counts
 (BASELINE.json configs[2]/[4]: 512^3 boxes) where direct summation is
@@ -14,18 +14,14 @@ separations), while double-CIC-window compensation *over*-sharpens
 already nearly unbiased above ~4 cells.  ``deconvolve=True`` remains
 available for power-spectrum-oriented uses.
 
-``jnp.fft.rfftn`` lowers to the TPU's native FFT; the deposit/interp
-scatters and gathers are O(N) (vs the O(N^2) pair sum).  At scale the
-mass assignment dominates, not the FFT: XLA's TPU gather/scatter path
-costs per *index* (~10-30 ns each; measured 16.7M scalar gathers =
-155 ms, scatter-adds = 190 ms on v5e, vs ~880 GB/s dense streams), so
-the hot forms here touch each particle index once — one 24-wide row
-gather for interpolation (:func:`cic_interpolate_rows`, 0.56 s vs
-3.56 s for 24 scalar gathers at 16.7M/256^3) and one [N, 8]
-corner-channel scatter for deposit (:func:`cic_deposit_rows`; scatter
-cost is per element, so this one is only ~10% faster — 134M f32 adds
-through the scatter engine are the measured single-chip floor).  Full
-force step at 16.7M/256^3: 1.98 s rows vs 5.90 s scalar (3.0x).
+``jnp.fft.rfftn`` lowers to the platform FFT (cuFFT on the GPU); the
+deposit is one scatter-add and the interpolation a gather, both O(N)
+(vs the O(N^2) pair sum).  Three interpolation forms exist —
+:func:`cic_interpolate` (24 scalar gathers), :func:`cic_interpolate_rows`
+(one 24-wide row gather from a pre-expanded corner table) and
+:func:`cic_interpolate_cells` (a supercell-halo table, ~4x less table
+memory); :func:`orbitanalysis_tpu.policy.interpolation` picks among
+them from measurements (PERF.md).
 
 References: standard PM formulation (Hockney & Eastwood); the reference
 repo has no force solver at all — its on-the-fly mode assumes an external
@@ -39,6 +35,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 
 class PMConfig(NamedTuple):
@@ -142,14 +139,10 @@ def cic_deposit_rows(pos, mass, grid, box_size):
     weights land as corner channels at the *base* cell; dense periodic
     rolls shift each channel onto its corner afterwards).
 
-    Measured on v5e at 16.7M/256^3 this is only ~10% faster than the
-    classic 8-scatter form — XLA's scatter engine costs per scattered
-    *element* (~11 ns), and both forms push 134M adds through it — while
-    the ``[grid^3, 8]`` accumulator is lane-padded to 128 channels
-    (8.6 GB at 256^3).  :func:`pm_forces` therefore never auto-selects
-    it; the function stands as the measured record of the experiment.
-    Numerically the same adds as :func:`cic_deposit` modulo f32
-    reassociation.
+    Both forms push the same 8N adds through the scatter, and the
+    ``[grid^3, 8]`` accumulator costs 8x the grid's memory, so
+    :func:`pm_forces` never selects it.  Numerically the same adds as
+    :func:`cic_deposit` modulo f32 reassociation.
     """
     i0, f = _cic_base(pos, grid, box_size)
     w = _corner_weights(f) * mass[:, None]                    # [N, 8]
@@ -171,42 +164,29 @@ _ROWS_CHUNK = 1 << 19
 
 #: corner-table bytes above which ``table_dtype='auto'`` drops to
 #: bfloat16: the table is 24 x grid^3 x itemsize (f32: 1.6 GB at 256^3
-#: but 12.9 GB at 512^3 — alone most of a v5e's HBM).  bf16 halves it
-#: for ~4e-3 relative force error, far below the CIC assignment error
-#: at these grids.
+#: but 12.9 GB at 512^3).  bf16 halves it for ~4e-3 relative force
+#: error, far below the CIC assignment error at these grids.
 _TABLE_BF16_BYTES = 3 << 30
 
 
 def cic_interpolate_rows(field3, pos, grid, box_size, fold=16,
                          table_dtype="auto"):
-    """TPU-fast CIC interpolation: one row gather per particle instead
-    of 24 scalar gathers.
+    """CIC interpolation with one row gather per particle instead of
+    24 scalar gathers.
 
     ``table_dtype``: dtype of the pre-expanded corner table —
     ``'auto'`` keeps float32 until the table would exceed
-    ``_TABLE_BF16_BYTES`` (the 512^3 full-box anchor's 12.9 GB f32
-    table cannot share a 16 GB chip with the particle state), then
-    stores bfloat16 (~4e-3 relative force error; products and sums stay
-    f32).  Pass ``jnp.float32``/``jnp.bfloat16`` to force either.
+    ``_TABLE_BF16_BYTES``, then stores bfloat16 (~4e-3 relative force
+    error; products and sums stay f32).  Pass
+    ``jnp.float32``/``jnp.bfloat16`` to force either.
 
-    XLA's TPU gather costs per *index* (~10-30 ns each; 24 scalar
-    gathers at 16.7M particles = 3.56 s measured on v5e), so the force
-    field is pre-expanded into a corner table holding all 24 values a
-    particle needs (3 components x 8 corners, built with dense periodic
-    rolls) and each particle issues a single row gather at its base
-    cell.  Two memory-layout constraints shape the table:
-
-    - a ``[grid^3, 24]`` table lane-pads 24 -> 128 channels (8.6 GB at
-      256^3), so ``fold=16`` cells share a row: ``[grid^3/16, 384]``
-      has a minor dim of exactly 3*128 lanes — zero padding, 1.6 GB —
-      and the particle selects its cell's 24-channel block with a
-      one-hot multiply (elementwise, fuses);
-    - the gathered values can't fuse with the reduction (the reshape
-      after the gather blocks XLA loop fusion), so particles stream
-      through ``lax.map`` chunks that bound the transient.
-
-    Measured at 16.7M particles / 256^3 on v5e: 0.35 s vs 3.56 s for
-    the scalar form (10x); full PM force step 5.9 s -> ~1.9 s.
+    The force field is pre-expanded into a corner table holding all 24
+    values a particle needs (3 components x 8 corners, built with dense
+    periodic rolls) and each particle issues a single row gather at its
+    base cell.  ``fold=16`` cells share a table row (``[grid^3/16,
+    384]``) and the particle selects its cell's 24-channel block with a
+    one-hot multiply (elementwise, fuses); particles stream through
+    ``lax.map`` chunks that bound the gathered transient.
     """
     g3 = grid * grid * grid
     while g3 % fold:
@@ -321,10 +301,27 @@ def pm_forces_grid(rho, grid, box_size, G=1.0, deconvolve=False,
     phi_k = green * rho_k * G
 
     forces = []
-    for kvec in (kx, ky, kz):
+    for kvec in gradient_wavenumbers(grid, jnp):
         fk = -1j * kvec / h * phi_k               # physical gradient
         forces.append(jnp.fft.irfftn(fk, s=(grid, grid, grid)))
     return jnp.stack(forces)
+
+
+def gradient_wavenumbers(grid: int, xp=np):
+    """``(kx, ky, kz)`` (cell units, broadcastable to the ``rfftn``
+    half-spectrum) of the spectral gradient, zero on the Nyquist
+    planes: an odd derivative of a real field has no Hermitian-
+    consistent value there, and inverse real transforms treat such
+    input differently from one FFT library to the next (cuFFT and
+    pocketfft disagree by ~2 % of the force at 256^3), so the standard
+    choice — drop the Nyquist mode of the gradient — makes the result
+    well defined."""
+    def deriv(freq):
+        return xp.where(xp.abs(freq) == 0.5, 0.0, freq) * (2 * np.pi)
+
+    return (deriv(xp.fft.fftfreq(grid))[:, None, None],
+            deriv(xp.fft.fftfreq(grid))[None, :, None],
+            deriv(xp.fft.rfftfreq(grid))[None, None, :])
 
 
 #: particles per lax.map chunk in cic_interpolate_cells: the gathered
@@ -335,20 +332,16 @@ _CELLS_CHUNK = 1 << 18
 def cic_interpolate_cells(field3, pos, grid, box_size, block=4,
                           table_dtype="auto"):
     """CIC interpolation via a supercell-halo corner table — the
-    memory diet for the 512^3 full-box anchor (round-3 review item 5).
+    memory diet for the 512^3 full-box anchor.
 
     :func:`cic_interpolate_rows`'s 24-channel table stores every force
     value 8 times (once per neighbor whose stencil touches it): 6.4 GB
-    bf16 at 512^3 — the allocation that pushes the 33.5M-particle
-    config-4 run past a single v5e (``benchmarks/config4_memprobe.py``:
-    17.5 GiB compiled).  This form packs ``block^3`` cells per table
-    row with a one-cell halo — ``[grid^3/block^3, 3*(block+1)^3]``,
+    bf16 at 512^3.  This form packs ``block^3`` cells per table row
+    with a one-cell halo — ``[grid^3/block^3, 3*(block+1)^3]``,
     redundancy ``((B+1)/B)^3`` ~ 1.95x instead of 8x, **1.6 GB** at the
-    default ``block=4`` — for the same ONE gathered row per particle
-    (index count is what gathers cost; both tables gather a ~768 B
-    row).  The particle then selects its 24 stencil values from the
-    halo'd row with three separable exact one-hot contractions (~1000
-    VPU flops/particle — noise against the gather).
+    default ``block=4`` — for the same ONE gathered row per particle.
+    The particle then selects its 24 stencil values from the halo'd row
+    with three separable exact one-hot contractions.
 
     Selection is exact, so with an f32 table the result is bit-identical
     to :func:`cic_interpolate`; ``table_dtype='auto'`` drops the table
@@ -436,55 +429,15 @@ def cic_interpolate_cells(field3, pos, grid, box_size, block=4,
 
 def _interp_choice(assignment: str, grid: int) -> str:
     if assignment == "auto":
-        if jax.default_backend() != "tpu":
-            return "scalar"
-        # at grids where even the bf16 24-channel table dominates HBM
-        # (the 512^3 anchor) the supercell-halo form is the only one
-        # that fits alongside the particle state
-        g3 = grid * grid * grid
-        return "cells" if g3 * 24 * 4 > _TABLE_BF16_BYTES else "rows"
+        from orbitanalysis_tpu.policy import interpolation
+
+        return interpolation(grid)
     if assignment not in ("rows", "scalar", "cells"):
         raise ValueError(
             f"assignment must be 'auto', 'rows', 'cells' or 'scalar', "
             f"got {assignment!r}"
         )
     return assignment
-
-
-def select_depositor(deposit: str, grid: int):
-    """Deposit kernel policy: ``'sorted'`` = the sorted-stream Pallas
-    assembly (:func:`orbitanalysis_tpu.ops.pallas_deposit.cic_deposit_sorted`,
-    no scatter engine, ~6x the scatter form at 16.7M/256^3; grids past
-    the single-VMEM-block ceiling — e.g. the 512^3 full-box anchor —
-    run its X-slab ``lax.scan`` form automatically),
-    ``'scatter'`` = the classic 8-scatter form (:func:`cic_deposit`),
-    ``'auto'`` = sorted on TPU whenever either sorted form applies,
-    scatter elsewhere."""
-    from orbitanalysis_tpu.ops.pallas_deposit import (
-        cic_deposit_sorted,
-        pallas_deposit_slab_supported,
-        pallas_deposit_supported,
-    )
-
-    def sorted_ok():
-        return (pallas_deposit_supported(grid)
-                or pallas_deposit_slab_supported(grid))
-
-    if deposit == "auto":
-        use_sorted = jax.default_backend() == "tpu" and sorted_ok()
-    elif deposit in ("sorted", "scatter"):
-        if deposit == "sorted" and not sorted_ok():
-            raise ValueError(
-                f"deposit='sorted' needs the virtual {grid + 1}^3 mesh "
-                "VMEM-resident or slab-partitionable; this grid "
-                "exceeds both"
-            )
-        use_sorted = deposit == "sorted"
-    else:
-        raise ValueError(
-            f"deposit must be 'auto', 'sorted' or 'scatter', got {deposit!r}"
-        )
-    return cic_deposit_sorted if use_sorted else cic_deposit
 
 
 def _use_rows(assignment: str) -> bool:
@@ -497,11 +450,9 @@ def _use_rows(assignment: str) -> bool:
 
 
 def select_interpolator(assignment: str, grid: int = 0):
-    """The one place the ``assignment`` policy lives (validating the
-    string eagerly, at construction time).  ``grid`` informs the
-    ``'auto'`` choice — at the 24-channel-table blowup grids (512^3)
-    it picks the supercell-halo form; callers that interpolate
-    slab-sized sub-grids may omit it."""
+    """The one place the ``assignment`` string is resolved (validated
+    eagerly, at construction time).  ``grid`` informs the ``'auto'``
+    choice; callers that interpolate slab-sized sub-grids may omit it."""
     choice = _interp_choice(assignment, grid)
     return {
         "rows": cic_interpolate_rows,
@@ -518,28 +469,21 @@ def pm_forces(
     G: float = 1.0,
     deconvolve: bool = False,
     assignment: str = "auto",
-    deposit: str = "auto",
     **_,
 ) -> jnp.ndarray:
     """PM accelerations for all particles (signature-compatible with
     :func:`orbitanalysis_tpu.models.nbody.direct_forces` given a config
     closure over ``grid``).
 
-    ``assignment`` selects the interpolation kernel: ``'rows'`` = the
-    index-cost-minimizing folded row gather
-    (:func:`cic_interpolate_rows`, 10x the scalar form at 16.7M
-    particles), ``'cells'`` = the supercell-halo table
-    (:func:`cic_interpolate_cells`, 4x less table HBM — the 512^3
-    fit), ``'scalar'`` = the classic 24-gather form, ``'auto'`` = rows
-    on TPU (cells once the 24-channel table would blow past
-    ``_TABLE_BF16_BYTES``), scalar elsewhere.  ``deposit`` selects the
-    mass assignment (:func:`select_depositor`): the sorted-stream
-    Pallas assembly replaces the per-element scatter floor on TPU for
-    grids whose virtual mesh fits VMEM.
+    ``assignment`` selects the interpolation form: ``'rows'`` = the
+    folded row gather (:func:`cic_interpolate_rows`), ``'cells'`` = the
+    supercell-halo table (:func:`cic_interpolate_cells`, 4x less table
+    memory), ``'scalar'`` = the classic 24-gather form, ``'auto'`` =
+    :func:`orbitanalysis_tpu.policy.interpolation`.  The deposit is the
+    scatter-add :func:`cic_deposit`.
     """
     interp = select_interpolator(assignment, grid)
-    depositor = select_depositor(deposit, grid)
-    rho = depositor(pos, mass, grid, box_size)
+    rho = cic_deposit(pos, mass, grid, box_size)
     field = pm_forces_grid(
         rho, grid, box_size, G=G, deconvolve=deconvolve
     )
@@ -547,7 +491,7 @@ def pm_forces(
 
 
 def make_pm_force_fn(grid: int, deconvolve: bool = False,
-                     assignment: str = "auto", deposit: str = "auto"):
+                     assignment: str = "auto"):
     """A ``force_fn(pos, mass, box_size=..., G=..., **ignored)`` for
     :func:`orbitanalysis_tpu.models.nbody.simulate_with_tracking`."""
 
@@ -555,7 +499,6 @@ def make_pm_force_fn(grid: int, deconvolve: bool = False,
         if box_size is None:
             raise ValueError("PM forces require a periodic box_size")
         return pm_forces(pos, mass, grid, box_size, G=G,
-                         deconvolve=deconvolve, assignment=assignment,
-                         deposit=deposit)
+                         deconvolve=deconvolve, assignment=assignment)
 
     return force

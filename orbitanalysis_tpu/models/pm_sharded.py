@@ -26,6 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from orbitanalysis_tpu.models.pm import gradient_wavenumbers
+
 try:  # moved out of experimental in newer jax (no check_rep kwarg)
     from jax import shard_map
     _SHARD_MAP_KW = {}
@@ -57,6 +59,8 @@ def make_sharded_pm_grid_solver(
     kx_full = 2 * np.pi * np.fft.fftfreq(grid)
     ky_full = 2 * np.pi * np.fft.fftfreq(grid)
     kz_full = 2 * np.pi * np.fft.rfftfreq(grid)
+    dx_full, dy_full, dz_full = (
+        k.reshape(-1) for k in gradient_wavenumbers(grid))
 
     def local_solve(rho_l, box_size):
         """rho_l: [loc, G, Z->...] one X-slab; returns 3 force slabs."""
@@ -76,6 +80,13 @@ def make_sharded_pm_grid_solver(
         )[None, :, None]
         kz = jnp.asarray(kz_full, jnp.float32)[None, None, :]
         k2 = kx * kx + ky_l * ky_l + kz * kz
+        # gradient wavenumbers: zero on the Nyquist planes, as in
+        # models.pm.gradient_wavenumbers
+        dkx = jnp.asarray(dx_full, jnp.float32)[:, None, None]
+        dky_l = jax.lax.dynamic_slice_in_dim(
+            jnp.asarray(dy_full, jnp.float32), i * loc, loc
+        )[None, :, None]
+        dkz = jnp.asarray(dz_full, jnp.float32)[None, None, :]
 
         green = jnp.where(
             k2 > 0, -4 * jnp.pi / jnp.maximum(k2, 1e-30), 0.0
@@ -93,7 +104,7 @@ def make_sharded_pm_grid_solver(
         phi_k = green.astype(jnp.complex64) * rk
 
         outs = []
-        for kvec in (kx, ky_l, kz):
+        for kvec in (dkx, dky_l, dkz):
             fk = (-1j * kvec / h).astype(jnp.complex64) * phi_k
             fk = jnp.fft.ifft(fk, axis=0)                # back from X
             fk = jax.lax.all_to_all(
@@ -164,8 +175,8 @@ def make_slab_resident_pm_force_fn(
 ):
     """Fully grid-resident distributed PM: per-device memory is
     ``O(grid^3 / n_dev)`` — the configuration for 1024^3-2048^3 meshes
-    that cannot be materialized on one chip (a 2048^3 f32 field is 34 GB
-    against 16 GB of v5e HBM).
+    that cannot be materialized on one card (a 2048^3 f32 field with its
+    FFT workspace outgrows one 80 GB card).
 
     Pipeline inside one ``shard_map`` over ``axis``:
 

@@ -19,23 +19,30 @@ accumulate/reset) becomes elementwise over ``[N]`` planes:
 - the ID join disappears — there is nothing to match because nothing
   moves.
 
-The one non-elementwise need — per-particle halo center / bulk
-velocity — is a tiny-table gather, which TPUs hate (measured 10-30 ns
-*per index* through XLA's gather engine; the round-2 integrator paid
-711 ms/step for its member gathers at 12.6M particles).  Here it runs
-as a ONE-HOT MATMUL on the MXU: ``onehot(label) [N, H] @ table [H, C]``
-chunked to bound the one-hot materialization.  One-hot selection in
-f32 is exact (each output row sums exactly one table row), so frame
-math is bit-identical to a gather.
+The two non-elementwise needs — per-particle halo center / bulk
+velocity rows (a tiny-table lookup) and the per-halo velocity moments
+behind the bulk velocities (the reference's mass-weighted moving-center
+frame, ``track_orbits.py:267-284``) — come in several forms, chosen by
+``frames`` (:func:`orbitanalysis_tpu.policy.label_frames` resolves
+``'auto'``):
 
-Per-halo bulk velocities (the reference's mass-weighted moving-center
-frame, ``track_orbits.py:267-284``) ride the SAME chunked one-hot:
-``onehot^T [H, chunk] @ moments [chunk, 4]`` accumulated across
-chunks — two MXU passes per step, zero gathers, zero sorts.
+- ``'gather'``: a table gather for the rows and ``segment_sum`` for the
+  moments — O(N) work;
+- ``'matmul'`` / ``'soa'`` (and ``*_bf16x3``): one-hot matmuls,
+  ``onehot(label) [N, H] @ table [H, C]``, chunked to bound the
+  one-hot — O(H·N) work, exact in f32 (each output row sums exactly one
+  table row);
+- ``'twolevel'``: a hi/lo split of the label that cuts the one-hot
+  work to ``(H/32 + 6*32)*N`` for large halo counts;
+- ``'select'``: an H-pass select scan, the bit-exact reference.
+
+Every form selects rows bit-exactly, so frame math is identical across
+them; moments differ only in f32 summation order.
 
 Events come back positional (the aligned engine's single-payload
-contract, ``ops/pallas_compact.py:compact_payload``): the global pool
-index identifies the particle, and the label plane maps it to a halo.
+contract, :func:`orbitanalysis_tpu.ops.compact.compact_payload`): the
+global pool index identifies the particle, and the label plane maps it
+to a halo.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ __all__ = [
     "init_label_carry",
     "make_label_orbit_step",
     "scan_label_events",
+    "take_rows_gather",
     "take_rows_matmul",
 ]
 
@@ -62,19 +70,16 @@ class LabelCarry(NamedTuple):
     or ``[R, row_width]`` uint32 when octahedral-packed): particle
     ``i`` lives at row ``i // row_width``, lane ``i % row_width``.
 
-    2D on purpose: rank-1 ``[N]`` planes cost ~8.7x the same
-    elementwise work on TPU (measured: 0.200 vs 0.023 ms/step for the
-    detection chain at N=2.1M — a [N] f32 array lays out as one
-    sublane, so every vector op runs 1/8-utilized), and the row shape
-    is exactly what the positional event compaction consumes, so the
-    payload path needs no reshape at all.
+    The row shape is exactly what the positional event compaction
+    consumes (one compaction row per plane row), so the payload path
+    needs no reshape.
 
     ``lab_sv``: previous halo label in bits 0-27 offset by +1 (0 =
     untracked; labels are < 2**27) with the radial-velocity sign bits
     in bits 28-29 (bit 28 = inward, bit 29 = outward, the
     :func:`orbitanalysis_tpu.ops.sorted_step._vr_bits` convention
-    shifted) — one i32 plane instead of an i32 + a sub-word u8 (TPU
-    elementwise on u8 planes pays relayouts).  ``packed``: f32 angle
+    shifted) — one i32 plane instead of an i32 + a sub-word u8.
+    ``packed``: f32 angle
     accumulator in bits 0-30, matched flag in bit 31 — the aligned
     engine's carry contract.
     """
@@ -124,9 +129,8 @@ def _auto_chunk(n: int, h: int, chunk):
 
     Single-chunk when the implied one-hot stays under ~1 GB: without
     a ``lax.map``/``scan`` boundary XLA fuses the iota-compare into the
-    MXU operand feed and the dot output into its consumers (measured
-    ~20% faster than 128k chunks at 2M x 64); chunk only to bound
-    worst-case transient memory.  When ``n`` is not a chunk multiple
+    dot's operand and the dot output into its consumers; chunk only to
+    bound worst-case transient memory.  When ``n`` is not a chunk multiple
     the PLANES ARE PADDED to the next multiple (``pad`` tail entries:
     idx −1 → zero one-hot column, values 0) instead of collapsing to a
     single ``n``-sized chunk — a single chunk at the scales these
@@ -166,9 +170,8 @@ def _split_bf16x3(x: jnp.ndarray):
     Exact for ``|x| >~ 2**-110`` (below that the low pieces, ~2**-17
     smaller than ``x``, dip under bf16's 2**-133 subnormal floor and
     round — irrelevant for physical positions/velocities/masses).
-    This is what turns a ``Precision.HIGHEST`` f32 MXU dot (~6 passes,
-    each re-feeding its fused operands) into ONE native bf16 pass
-    while keeping one-hot selection bit-exact.
+    This turns a ``Precision.HIGHEST`` f32 dot into ONE native bf16
+    dot while keeping one-hot selection bit-exact.
     """
 
     def trunc(v):
@@ -193,17 +196,11 @@ def take_rows_matmul(table: jnp.ndarray, idx: jnp.ndarray,
 
     ``table``: ``[H, C]`` f32; ``idx``: ``[N]`` int32 in ``[-1, H)``
     (-1 rows return zeros).  Exact in f32: each output row is a sum
-    with exactly one nonzero product.  MXU-bound at ``2 N H C`` flops
-    instead of ``N`` serial gather lookups (10-30 ns each on TPU).
+    with exactly one nonzero product; ``2 N H C`` flops.
 
     ``precision='f32'`` (default) is the ``Precision.HIGHEST`` f32
-    dot — MEASURED FASTEST on the session v5e
-    (benchmarks/label_ablation.py: 20.6 ms full-step scan vs 28.3 for
-    'bf16x3' and 31.1 for the Pallas kernels at N=2.1M x H=64 — the
-    extra f32 MXU passes are cheaper than the bf16x3 variant's wider
-    output + piece re-sum).  ``'bf16x3'`` runs ONE native bf16 MXU
-    pass over the exactly-split table (:func:`_split_bf16x3`) — also
-    bit-exact, kept for hardware where f32 passes dominate.
+    dot.  ``'bf16x3'`` runs ONE native bf16 dot over the exactly-split
+    table (:func:`_split_bf16x3`) — also bit-exact.
     """
     h, c = table.shape
     n = idx.shape[0]
@@ -253,11 +250,8 @@ def _onehot_hn(idx: jnp.ndarray, h: int) -> jnp.ndarray:
     return idx[None, :] == jnp.arange(h, dtype=jnp.int32)[:, None]
 
 
-# two-level split width (probed: benchmarks/frames_probe.py) and the
-# halo count above which the two-level forms win (the direct one-hot's
-# N*H generation/dot cost overtakes the split's (H/HL + C*HL)*N)
+# two-level split width
 _TWOLEVEL_HL = 32
-_TWOLEVEL_MIN_H = 256
 
 
 def take_rows_twolevel(table: jnp.ndarray, idx: jnp.ndarray,
@@ -265,15 +259,12 @@ def take_rows_twolevel(table: jnp.ndarray, idx: jnp.ndarray,
     """``table[idx].T`` (SoA ``[C, N]``) via a two-level hi/lo label
     split — the large-``H`` form of :func:`take_rows_soa`.
 
-    One-hot work drops from ``H*N`` to ``(H/hl)*N`` on the MXU plus a
-    ``C*hl*N`` VPU contraction: ``partial[(c, lo), n] =
+    One-hot work drops from ``H*N`` to ``(H/hl)*N`` in a dot plus a
+    ``C*hl*N`` elementwise contraction: ``partial[(c, lo), n] =
     table[hi(n)*hl + lo, c]`` comes from a ``[C*hl, H/hl]`` re-tiled
     table dot with ``onehot(idx // hl)``, then the low one-hot
     contracts elementwise.  Bit-exact (both stages select exactly one
-    nonzero product per output).  Measured on the session v5e at
-    H=1536, N=8.4M: 12.2 ms vs 29.6 direct (2.4x); at H=64 the direct
-    form wins — :func:`make_label_orbit_step` switches on
-    ``_TWOLEVEL_MIN_H``.
+    nonzero product per output).
     """
     h, c = table.shape
     n = idx.shape[0]
@@ -320,11 +311,8 @@ def _frame_geometry(p3, v3, cpp, bpp, hubble_drag, box_size):
     radial quantities (``track_orbits.py:276-288``: ``v_phys = v -
     v_bulk + H·r/(1+z)``, ``vr = r̂·v_phys``).
 
-    Plane-wise on purpose: stacked ``[3, N]`` f32 temporaries tile as
-    T(4,128) on TPU — 1.33x sublane padding, ~400 MB wasted per
-    temporary at 1e8 particles (the unfused form OOM'd the 101M census
-    by 2.3 MB).  XLA fuses the elementwise chain identically either
-    way; the plane form just never asks for padded stacks.
+    Plane-wise on purpose: XLA fuses the elementwise chain identically
+    either way, and the plane form never asks for stacked temporaries.
     """
     rel = []
     for d in range(3):
@@ -409,10 +397,9 @@ def _segment_moments_twolevel(values: jnp.ndarray, idx: jnp.ndarray,
                               hl: int = _TWOLEVEL_HL) -> jnp.ndarray:
     """Per-halo sums ``[H, C]`` of SoA ``values [C, N]`` grouped by
     ``idx`` via the two-level split: the low one-hot multiplies into
-    the values as a fused ``[C*hl, N]`` MXU operand, the high one-hot
+    the values as a fused ``[C*hl, N]`` dot operand, the high one-hot
     is the dot's other side — ``H*N`` one-hot work becomes
-    ``(C*hl + H/hl)*N``.  Measured at H=1536, N=8.4M: 5.6 ms vs 21.4
-    direct (3.8x).  Same f32-accumulation tolerance class as the
+    ``(C*hl + H/hl)*N``.  Same f32-accumulation tolerance class as the
     direct forms (different reduction order)."""
     h = n_halos
     c, n = values.shape
@@ -546,15 +533,15 @@ def _segment_moments_matmul(values: jnp.ndarray, idx: jnp.ndarray,
                             n_halos: int, chunk=None,
                             precision: str = "f32") -> jnp.ndarray:
     """Per-halo sums of ``values [N, C]`` grouped by ``idx [N]``
-    (-1 ignored), as chunked ``onehot^T @ values`` MXU passes.
+    (-1 ignored), as chunked ``onehot^T @ values`` dots.
 
     f32 accumulation in halo-major chunk order — deterministic, and
     within one ulp of a NumPy segment sum (the aligned engine's
     bulk-velocity tolerance class, ``tests/test_engine.py``).
     ``precision='f32'`` (the default) is the ``Precision.HIGHEST`` f32
-    dot — measured fastest on the session v5e.  ``'bf16x3'`` splits
+    dot.  ``'bf16x3'`` splits
     ``values`` exactly into 3 bf16 planes (:func:`_split_bf16x3`) and
-    runs ONE native bf16 MXU pass over the ``[N, 3C]`` concat — each
+    runs ONE native bf16 dot over the ``[N, 3C]`` concat — each
     per-halo piece sum is a 0/1-weighted f32-accumulated reduction, so
     the only change vs the f32 dot is the (already tolerance-classed)
     accumulation order.
@@ -635,6 +622,28 @@ def assign_regions(pos, centers, radii, box_size=None,
     return label
 
 
+def take_rows_gather(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """``table[idx].T`` (SoA ``[C, N]``) as a plain gather; -1 rows
+    return zeros.  O(N) work, bit-exact."""
+    rows = jnp.take(table.astype(jnp.float32).T, jnp.maximum(idx, 0),
+                    axis=1)                                  # [C, N]
+    return jnp.where((idx >= 0)[None, :], rows, 0.0)
+
+
+def _segment_moments_gather(values: jnp.ndarray, idx: jnp.ndarray,
+                            n_halos: int) -> jnp.ndarray:
+    """Per-halo sums ``[H, C]`` of SoA ``values [C, N]`` grouped by
+    ``idx [N]`` (-1 ignored) as one ``segment_sum`` — O(N) work; f32
+    summation order is the backend's (the direct forms' tolerance
+    class)."""
+    return jax.ops.segment_sum(
+        values.astype(jnp.float32).T, idx, num_segments=n_halos)
+
+
+FRAMES_IMPLS = ("auto", "gather", "matmul", "matmul_bf16x3", "soa",
+                "soa_bf16x3", "twolevel", "select")
+
+
 def make_label_orbit_step(
     event_capacity: int,
     mode: str = "pericentric",
@@ -648,7 +657,7 @@ def make_label_orbit_step(
     """Churn-proof detector over a position-stable pool — the aligned
     engine's step with the stable layout provided by the pool itself
     (no staging, no join): everything is elementwise ``[N]`` planes
-    except two chunked one-hot MXU passes for the halo frames.
+    except the per-halo frames (``frames``, see the module docstring).
 
     The returned ``step(carry, inputs) -> (carry, LabelEvents)`` takes
     ``inputs = (pos [3, N], vel [3, N], label [N], centers [H, 3],
@@ -663,16 +672,18 @@ def make_label_orbit_step(
     addresses ``pos + 1 <= 2**17 - 1`` per row): global pool index =
     ``row * row_width + position``.  ``event_capacity`` is per row.
     """
-    from orbitanalysis_tpu.ops.pallas_compact import (
-        compact_payload_blocked,
+    from orbitanalysis_tpu.ops.compact import (
+        compact_payload,
+        decode_payload,
     )
-    from orbitanalysis_tpu.ops.pallas_config import default_interpret
-    from orbitanalysis_tpu.ops.pallas_step import _acos_f32
-    from orbitanalysis_tpu.utils.numerics import oct_decode, oct_encode
+    from orbitanalysis_tpu.policy import label_frames
+    from orbitanalysis_tpu.utils.numerics import (
+        acos_f32,
+        oct_decode,
+        oct_encode,
+    )
 
-    if frames not in ("auto", "matmul", "matmul_bf16x3", "soa",
-                      "soa_bf16x3", "twolevel", "select", "pallas",
-                      "pallas2", "fused", "split"):
+    if frames not in FRAMES_IMPLS:
         raise ValueError(f"unknown frames impl {frames!r}")
     if mode not in ("pericentric", "apocentric"):
         raise ValueError(
@@ -686,10 +697,9 @@ def make_label_orbit_step(
 
     def step(carry: LabelCarry, inputs):
         pos, vel, label, centers, bulk_vel, mass, hubble_drag = inputs
-        # canonicalize to the carry's 2D [R, W] row planes (rank-1 [N]
-        # planes cost ~8.7x the same elementwise work — LabelCarry
-        # docstring); 1D callers pay one relayout per plane here,
-        # sequence drivers (scan_label_events) reshape once up front
+        # canonicalize to the carry's 2D [R, W] row planes; 1D callers
+        # pay one reshape per plane here, sequence drivers
+        # (scan_label_events) reshape once up front
         if label.ndim == 1:
             n = label.shape[0]
             w_ = min(row_width, n)
@@ -709,263 +719,75 @@ def make_label_orbit_step(
         h = centers.shape[0] if n_halos is None else n_halos
         valid = label >= 0
         lab_m = jnp.where(valid, label, -1)
-        # 'auto' resolves per halo count + backend (static at trace
-        # time).  Small H on compiled TPU: the bf16x3 VMEM-one-hot
-        # Pallas kernels — the one-hot never exists in HBM and the
-        # exact-split single bf16 MXU pass replaces the f32 HIGHEST
-        # multi-pass (measured at N=2.1M x H=64 in-scan: moments 0.31
-        # vs 0.53 ms, take-rows 0.16 vs 0.24 — benchmarks/
-        # label_ablation.py carries the full-step table).  Small H in
-        # interpret mode (CPU tests): the f32 HIGHEST one-hot matmul.
-        # Large H: the two-level hi/lo split — its one-hot work is
-        # (H/32 + 6*32)*N instead of H*N (benchmarks/frames_probe.py
-        # at H=1536, N=8.4M: take-rows 12.2 vs 29.6 ms, moments 5.6 vs
-        # 21.4).  'select' is the bit-exact H-pass alternative for
-        # parity tests.
-        impl = frames
-        if impl == "auto":
-            if h >= _TWOLEVEL_MIN_H:
-                impl = "twolevel"
-            elif not default_interpret():
-                impl = "split"
-            else:
-                impl = "matmul"
+        lab_f = lab_m.reshape(n)
+        impl = label_frames(h) if frames == "auto" else frames
 
-        # halo frames via one MXU pass: moments [H, 4] = [m·vx, m·vy,
-        # m·vz, m]; bulk = m·v sums / m sum
+        # per-halo moments [H, 4] = [m·vx, m·vy, m·vz, m]; bulk = m·v
+        # sums / m sum
         if bulk_vel is None:
-            if impl == "pallas":
-                from orbitanalysis_tpu.ops.pallas_frames import (
-                    segment_moments,
+            vel_f = jnp.reshape(vel, (3, n))
+            w = (jnp.ones((n,), jnp.float32) if mass is None
+                 else jnp.reshape(mass, (n,)))
+            w = jnp.where(lab_f >= 0, w, 0.0)
+            soa_vals = jnp.concatenate([vel_f * w[None], w[None, :]],
+                                       axis=0)
+            if impl == "gather":
+                mom = _segment_moments_gather(soa_vals, lab_f, h)
+            elif impl == "twolevel":
+                mom = _segment_moments_twolevel(
+                    soa_vals, lab_f, h, chunk=chunk)
+            elif impl in ("soa", "soa_bf16x3"):
+                mom = _segment_moments_soa(
+                    soa_vals, lab_f, h, chunk=chunk,
+                    precision=("bf16x3" if impl == "soa_bf16x3"
+                               else "f32"),
                 )
-
-                mom = segment_moments(
-                    lab_m.reshape(n), jnp.reshape(vel, (3, n)),
-                    None if mass is None else jnp.reshape(mass, (n,)),
-                    n_halos=h,
-                )
-            elif impl in ("pallas2", "fused", "split"):
-                from orbitanalysis_tpu.ops.pallas_frames import (
-                    segment_moments_bf16x3,
-                )
-
-                mom = segment_moments_bf16x3(
-                    lab_m, vel, mass, n_halos=h)
             else:
-                lab_f = lab_m.reshape(n)
-                vel_f = jnp.reshape(vel, (3, n))
-                w = (jnp.ones((n,), jnp.float32) if mass is None
-                     else jnp.reshape(mass, (n,)))
-                w = jnp.where(lab_f >= 0, w, 0.0)
-                if impl == "twolevel":
-                    mom = _segment_moments_twolevel(
-                        jnp.concatenate([vel_f * w[None], w[None, :]],
-                                        axis=0),
-                        lab_f, h, chunk=chunk,
-                    )
-                elif impl in ("soa", "soa_bf16x3"):
-                    mom = _segment_moments_soa(
-                        jnp.concatenate([vel_f * w[None], w[None, :]],
-                                        axis=0),
-                        lab_f, h, chunk=chunk,
-                        precision=("bf16x3" if impl == "soa_bf16x3"
-                                   else "f32"),
-                    )
-                else:
-                    mom = _segment_moments_matmul(
-                        jnp.stack([vel_f[0] * w, vel_f[1] * w,
-                                   vel_f[2] * w, w], axis=-1),
-                        lab_f, h, chunk=chunk,
-                        precision=("bf16x3" if impl == "matmul_bf16x3"
-                                   else "f32"),
-                    )
+                mom = _segment_moments_matmul(
+                    jnp.stack([vel_f[0] * w, vel_f[1] * w,
+                               vel_f[2] * w, w], axis=-1),
+                    lab_f, h, chunk=chunk,
+                    precision=("bf16x3" if impl == "matmul_bf16x3"
+                               else "f32"),
+                )
             bulk = mom[:, :3] / jnp.maximum(mom[:, 3:4], 1e-30)
         else:
             bulk = jnp.asarray(bulk_vel, jnp.float32)
 
-        # per-particle center & bulk rows: one one-hot matmul over the
-        # combined [H, 6] table
+        # per-particle center & bulk rows from the combined [H, 6] table
         table = jnp.concatenate([centers.astype(jnp.float32), bulk],
                                 axis=-1)
-        if impl in ("fused", "split"):
-            if impl == "fused":
-                # single-pass kernel: frame rows + geometry +
-                # detection + carry update + payload, each plane
-                # touched exactly once
-                from orbitanalysis_tpu.ops.pallas_label import (
-                    fused_label_detect,
-                )
-
-                sv_n, rh_n, pk_n, payload, count = fused_label_detect(
-                    table, lab_m, pos, vel,
-                    carry.lab_sv, carry.rhat, carry.packed,
-                    hubble_drag, pericentric=pericentric,
-                    box_size=box_size, rhat_packed=rhat_packed,
-                )
-            else:
-                # two passes: the blocked one-hot MXU frame-row kernel
-                # then the lane-major detect+compact kernel — frame
-                # rows come in precomputed, and the event compaction
-                # runs INSIDE the detect kernel (fast path), so the
-                # [R, W] payload round-trip + separate kernel launch
-                # disappear; rows whose per-128-block occupancy
-                # overflows the blocked network reroute through the
-                # exact full-range kernel via lax.cond on the emitted
-                # overflow channel
-                from orbitanalysis_tpu.ops.pallas_compact import (
-                    BLOCK_CAP,
-                    compact_payload,
-                )
-                from orbitanalysis_tpu.ops.pallas_frames import (
-                    frame_rows_bf16x3,
-                )
-                from orbitanalysis_tpu.ops.pallas_label import (
-                    detect_label_compact_pallas,
-                    detect_label_pallas,
-                )
-
-                rows_soa = frame_rows_bf16x3(table, lab_m).reshape(
-                    6, R, W)
-                k_eff = min(K, W)
-                rpb = W // 128
-                k128 = min(((k_eff + 127) // 128) * 128, W)
-                blocked_ok = (
-                    W > 128
-                    and (rpb * BLOCK_CAP) % 128 == 0
-                    and k128 <= rpb * BLOCK_CAP
-                )
-                if blocked_ok:
-                    (sv_n, rh_n, pk_n, payload, evpay, count, ov) = (
-                        detect_label_compact_pallas(
-                            rows_soa, lab_m, pos, vel,
-                            carry.lab_sv, carry.rhat, carry.packed,
-                            hubble_drag, event_capacity=k_eff,
-                            pericentric=pericentric,
-                            box_size=box_size,
-                            rhat_packed=rhat_packed,
-                        )
-                    )
-                    evpay = jax.lax.cond(
-                        jnp.max(ov) > BLOCK_CAP,
-                        lambda: compact_payload(payload, k_eff),
-                        lambda: evpay,
-                    )
-                else:
-                    sv_n, rh_n, pk_n, payload, count = (
-                        detect_label_pallas(
-                            rows_soa, lab_m, pos, vel,
-                            carry.lab_sv, carry.rhat, carry.packed,
-                            hubble_drag, pericentric=pericentric,
-                            box_size=box_size, rhat_packed=rhat_packed,
-                        )
-                    )
-                    evpay = compact_payload_blocked(payload, k_eff)
-                ev_pos = (evpay >> 15).astype(jnp.int32) - 1
-                ev_ang = jax.lax.bitcast_convert_type(
-                    (evpay & jnp.uint32(0x7FFF)).astype(jnp.uint16),
-                    jnp.float16,
-                ).astype(jnp.float32)
-                kw = ev_pos.shape[1]
-                kiota = jax.lax.broadcasted_iota(jnp.int32, (R, kw), 1)
-                ev_ok = kiota < count[:, None]
-                new_carry = LabelCarry(
-                    lab_sv=sv_n, rhat=rh_n, packed=pk_n,
-                )
-                return new_carry, LabelEvents(
-                    count=count,
-                    index=jnp.where(
-                        ev_ok,
-                        ev_pos
-                        + jnp.arange(R, dtype=jnp.int32)[:, None] * W,
-                        -1,
-                    )[:, :K],
-                    angle=jnp.where(ev_ok, ev_ang, 0.0)[:, :K],
-                    bulk_vel=bulk,
-                )
-            k_eff = min(K, W)
-            evpay = compact_payload_blocked(payload, k_eff)
-            ev_pos = (evpay >> 15).astype(jnp.int32) - 1
-            ev_ang = jax.lax.bitcast_convert_type(
-                (evpay & jnp.uint32(0x7FFF)).astype(jnp.uint16),
-                jnp.float16,
-            ).astype(jnp.float32)
-            kw = ev_pos.shape[1]
-            kiota = jax.lax.broadcasted_iota(jnp.int32, (R, kw), 1)
-            ev_ok = kiota < count[:, None]
-            new_carry = LabelCarry(
-                lab_sv=sv_n, rhat=rh_n, packed=pk_n,
-            )
-            return new_carry, LabelEvents(
-                count=count,
-                index=jnp.where(
-                    ev_ok,
-                    ev_pos + jnp.arange(R, dtype=jnp.int32)[:, None] * W,
-                    -1,
-                )[:, :K],
-                angle=jnp.where(ev_ok, ev_ang, 0.0)[:, :K],
-                bulk_vel=bulk,
-            )
-        if impl == "pallas2":
-            from orbitanalysis_tpu.ops.pallas_frames import (
-                frame_rows_bf16x3,
-            )
-
-            rows_soa = frame_rows_bf16x3(table, lab_m).reshape(
-                6, R, W)
-            rhat, vr = _frame_geometry(
-                (pos[0], pos[1], pos[2]), (vel[0], vel[1], vel[2]),
-                (rows_soa[0], rows_soa[1], rows_soa[2]),
-                (rows_soa[3], rows_soa[4], rows_soa[5]),
-                hubble_drag, box_size,
-            )
-        elif impl == "twolevel":
-            # rows selection + geometry fused in one chunked pass —
-            # no [6, N] or padded [3, N] temporaries
+        p3 = tuple(jnp.reshape(pos[d], (n,)) for d in range(3))
+        v3 = tuple(jnp.reshape(vel[d], (n,)) for d in range(3))
+        if impl == "twolevel":
+            # rows selection + geometry fused in one chunked pass — no
+            # [6, N] temporaries
             rhat_f, vr_f = _frame_detect_twolevel(
-                table, lab_m.reshape(n),
-                tuple(jnp.reshape(pos[d], (n,)) for d in range(3)),
-                tuple(jnp.reshape(vel[d], (n,)) for d in range(3)),
-                hubble_drag, box_size, chunk=chunk,
+                table, lab_f, p3, v3, hubble_drag, box_size, chunk=chunk,
             )
-            rhat = tuple(x.reshape(R, W) for x in rhat_f)
-            vr = vr_f.reshape(R, W)
         else:
-            lab_f = lab_m.reshape(n)
-            if impl == "pallas":
-                from orbitanalysis_tpu.ops.pallas_frames import (
-                    frame_rows,
-                )
-
-                rows_soa = frame_rows(table, lab_f)
-                cpp = rows_soa[:3]  # [3, N] center per particle
-                bpp = rows_soa[3:]
+            if impl == "gather":
+                rows_soa = take_rows_gather(table, lab_f)
             elif impl in ("soa", "soa_bf16x3"):
                 rows_soa = take_rows_soa(
                     table, lab_f, chunk=chunk,
                     precision=("bf16x3" if impl == "soa_bf16x3"
                                else "f32"),
                 )
-                cpp = rows_soa[:3]
-                bpp = rows_soa[3:]
+            elif impl == "select":
+                rows_soa = take_rows_select(table, lab_f).T
             else:
-                if impl == "select":
-                    rows = take_rows_select(table, lab_f)
-                else:
-                    rows = take_rows_matmul(
-                        table, lab_f, chunk=chunk,
-                        precision=("bf16x3" if impl == "matmul_bf16x3"
-                                   else "f32"),
-                    )
-                cpp = rows[:, :3].T
-                bpp = rows[:, 3:].T
+                rows_soa = take_rows_matmul(
+                    table, lab_f, chunk=chunk,
+                    precision=("bf16x3" if impl == "matmul_bf16x3"
+                               else "f32"),
+                ).T
             rhat_f, vr_f = _frame_geometry(
-                tuple(jnp.reshape(pos[d], (n,)) for d in range(3)),
-                tuple(jnp.reshape(vel[d], (n,)) for d in range(3)),
-                (cpp[0], cpp[1], cpp[2]), (bpp[0], bpp[1], bpp[2]),
+                p3, v3, tuple(rows_soa[:3]), tuple(rows_soa[3:]),
                 hubble_drag, box_size,
             )
-            rhat = tuple(x.reshape(R, W) for x in rhat_f)
-            vr = vr_f.reshape(R, W)
+        rhat = tuple(x.reshape(R, W) for x in rhat_f)
+        vr = vr_f.reshape(R, W)
         vrb = ((vr < 0).astype(jnp.int32)
                | ((vr > 0).astype(jnp.int32) << 1))
 
@@ -985,7 +807,7 @@ def make_label_orbit_step(
             + prev_rhat[2] * rhat[2],
             -1.0, 1.0,
         )
-        dtheta = jnp.where(matched, _acos_f32(cosang), 0.0)
+        dtheta = jnp.where(matched, acos_f32(cosang), 0.0)
         pang = jax.lax.bitcast_convert_type(
             carry.packed & jnp.uint32(0x7FFFFFFF), jnp.float32
         )
@@ -1010,13 +832,8 @@ def make_label_orbit_step(
             ((pos_iota + 1).astype(jnp.uint32) << 15) | ang15,
             jnp.uint32(0),
         )
-        count = jnp.sum(apsis, axis=-1, dtype=jnp.int32)
-        k_eff = min(K, W)
-        evpay = compact_payload_blocked(payload, k_eff)
-        ev_pos = (evpay >> 15).astype(jnp.int32) - 1
-        ev_ang = jax.lax.bitcast_convert_type(
-            (evpay & jnp.uint32(0x7FFF)).astype(jnp.uint16), jnp.float16
-        ).astype(jnp.float32)
+        evpay, count = compact_payload(payload, K)
+        ev_pos, ev_ang = decode_payload(evpay)
         kw = ev_pos.shape[1]
         kiota = jax.lax.broadcasted_iota(jnp.int32, (R, kw), 1)
         ev_ok = kiota < count[:, None]
@@ -1033,8 +850,8 @@ def make_label_orbit_step(
                 ev_ok,
                 ev_pos + jnp.arange(R, dtype=jnp.int32)[:, None] * W,
                 -1,
-            )[:, :K],
-            angle=jnp.where(ev_ok, ev_ang, 0.0)[:, :K],
+            ),
+            angle=jnp.where(ev_ok, ev_ang, 0.0),
             bulk_vel=bulk,
         )
 

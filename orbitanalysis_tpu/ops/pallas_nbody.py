@@ -1,25 +1,23 @@
-"""Pallas TPU kernel: blocked direct-summation N-body forces.
+"""Blocked direct-summation N-body forces in O(N) memory.
 
-The jnp formulation in :mod:`orbitanalysis_tpu.models.nbody` materializes
-the full ``[N, N]`` pair matrix in HBM (the Gram trick), capping N at a
-few tens of thousands.  This kernel is the flash-attention-style blocked
-version: the grid tiles the *target* axis; each program streams all
-*source* tiles through VMEM, accumulating accelerations in a scratch
-register block — O(N^2) compute, O(N) memory traffic per axis.
+The Gram form in :func:`orbitanalysis_tpu.models.nbody.direct_forces`
+materializes the full ``[N, N]`` pair matrix, which caps N at a few
+tens of thousands.  Two blocked forms replace it beyond that:
 
-Layout: positions arrive as ``[N, 3]`` (host-natural) and are transposed
-to structure-of-arrays ``[3, N]`` planes on device before the call so the
-lane dimension is fully used (a size-3 minor axis would waste 125/128 of
-every tile — see the geometry module).
+- :func:`direct_forces_triton` — a Pallas kernel through Triton: one
+  program per target tile loops over source tiles loaded from global
+  memory (masked at the ragged end) and keeps ``[T, S]`` acceleration
+  accumulators in registers, reduced once at the end.  O(N^2)
+  arithmetic, O(N) memory.
+- :func:`direct_forces_blocked` — the same tiling in plain XLA:
+  ``lax.map`` over target tiles, each a fused ``[T, N]`` pair
+  reduction.
 
-Padding protocol: pad N up to a tile multiple with **zero-mass sources**
-at infinity-free positions — zero mass means zero contribution, so no
-masks are needed anywhere in the inner loop; padded target rows compute
-garbage that the caller slices off.
-
-Self-interaction: ``d^2`` is clamped below by ``max(softening^2, tiny)``;
-the numerator ``dx`` is exactly zero for the self pair, so the self force
-vanishes for any softening >= 0.
+Both take positions ``[N, 3]`` and masses ``[N]``; masked (or padded)
+sources carry zero mass, so they contribute nothing.  Self-interaction
+vanishes because the displacement is exactly zero; ``d^2`` is clamped
+below by ``max(softening^2, tiny)`` so the zero-softening self pair is
+finite.  ``box_size`` enables per-pair minimum-image wrapping.
 """
 
 from __future__ import annotations
@@ -28,123 +26,124 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from orbitanalysis_tpu.utils.padding import round_up
-
-_TILE_T = 256    # targets per program (sublane-aligned)
-_TILE_S = 1024   # sources per inner step (lane-aligned)
 _TINY = 1e-18
 
 
-def _force_kernel(xs_ref, ys_ref, zs_ref, ms_ref,
-                  ax_ref, ay_ref, az_ref, *, eps2, n_src_tiles, box):
-    """One target tile vs all source tiles.
-
-    refs: xs/ys/zs/ms are the full [1, N] SoA planes in VMEM (shared by
-    every program); outputs are the [1, TILE_T] acceleration planes for
-    this program's target tile.  ``box`` enables per-pair minimum-image
-    wrapping (None = free space).
-    """
-    i = pl.program_id(0)
-    t0 = i * _TILE_T
-    xt = xs_ref[0, pl.ds(t0, _TILE_T)]
-    yt = ys_ref[0, pl.ds(t0, _TILE_T)]
-    zt = zs_ref[0, pl.ds(t0, _TILE_T)]
-
-    def wrap(d):
-        if box is None:
-            return d
-        return d - box * jnp.round(d * (1.0 / box))
-
-    def body(j, acc):
-        ax, ay, az = acc
-        s0 = j * _TILE_S
-        xs = xs_ref[0, pl.ds(s0, _TILE_S)]
-        ys = ys_ref[0, pl.ds(s0, _TILE_S)]
-        zs = zs_ref[0, pl.ds(s0, _TILE_S)]
-        ms = ms_ref[0, pl.ds(s0, _TILE_S)]
-        dx = wrap(xs[None, :] - xt[:, None])    # [T, S]
-        dy = wrap(ys[None, :] - yt[:, None])
-        dz = wrap(zs[None, :] - zt[:, None])
-        d2 = dx * dx + dy * dy + dz * dz + eps2
-        d2 = jnp.maximum(d2, _TINY)
-        w = ms[None, :] * jax.lax.rsqrt(d2) / d2   # m / d^3
-        ax = ax + jnp.sum(w * dx, axis=1)
-        ay = ay + jnp.sum(w * dy, axis=1)
-        az = az + jnp.sum(w * dz, axis=1)
-        return ax, ay, az
-
-    zero = jnp.zeros((_TILE_T,), jnp.float32)
-    ax, ay, az = jax.lax.fori_loop(0, n_src_tiles, body, (zero, zero, zero))
-    ax_ref[0, :] = ax
-    ay_ref[0, :] = ay
-    az_ref[0, :] = az
+def _wrap(d, box):
+    if box is None:
+        return d
+    # floor(x + 0.5) instead of round(): the Triton lowering has floor
+    return d - box * jnp.floor(d * (1.0 / box) + 0.5)
 
 
-try:  # pallas imports fail on some CPU-only builds; fall back gracefully
+def _pair_terms(xt, yt, zt, xs, ys, zs, ms, eps2, box):
+    """Per-pair acceleration terms ``[T, S]`` of targets ``[T]`` from
+    sources ``[S]``."""
+    dx = _wrap(xs[None, :] - xt[:, None], box)     # [T, S]
+    dy = _wrap(ys[None, :] - yt[:, None], box)
+    dz = _wrap(zs[None, :] - zt[:, None], box)
+    d2 = jnp.maximum(dx * dx + dy * dy + dz * dz + eps2, _TINY)
+    inv = jax.lax.rsqrt(d2)
+    w = ms[None, :] * (inv * inv * inv)            # m / d^3
+    return w * dx, w * dy, w * dz
+
+
+def _force_kernel(x_ref, y_ref, z_ref, m_ref, ax_ref, ay_ref, az_ref, *,
+                  n, tile_t, tile_s, eps2, box):
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
+    t = pl.program_id(0) * tile_t + jnp.arange(tile_t, dtype=jnp.int32)
+    tmask = t < n
+    xt = plgpu.load(x_ref.at[t], mask=tmask, other=0.0)
+    yt = plgpu.load(y_ref.at[t], mask=tmask, other=0.0)
+    zt = plgpu.load(z_ref.at[t], mask=tmask, other=0.0)
+
+    # [T, S] accumulators summed once at the end: no cross-thread
+    # reduction inside the source loop
+    def body(j, acc):
+        s = j * tile_s + jnp.arange(tile_s, dtype=jnp.int32)
+        smask = s < n
+        xs = plgpu.load(x_ref.at[s], mask=smask, other=0.0)
+        ys = plgpu.load(y_ref.at[s], mask=smask, other=0.0)
+        zs = plgpu.load(z_ref.at[s], mask=smask, other=0.0)
+        ms = plgpu.load(m_ref.at[s], mask=smask, other=0.0)
+        tx, ty, tz = _pair_terms(xt, yt, zt, xs, ys, zs, ms, eps2, box)
+        return acc[0] + tx, acc[1] + ty, acc[2] + tz
+
+    zero = jnp.zeros((tile_t, tile_s), jnp.float32)
+    ax, ay, az = jax.lax.fori_loop(
+        0, pl.cdiv(n, tile_s), body, (zero, zero, zero))
+    plgpu.store(ax_ref.at[t], jnp.sum(ax, axis=1), mask=tmask)
+    plgpu.store(ay_ref.at[t], jnp.sum(ay, axis=1), mask=tmask)
+    plgpu.store(az_ref.at[t], jnp.sum(az, axis=1), mask=tmask)
+
+
+#: Triton launch configuration (target rows per program, source tile
+#: width, warps, pipeline stages) — the fastest of the configurations
+#: measured on an H100 at N = 16384-262144 (PERF.md).
+TRITON_CONFIG = dict(tile_t=16, tile_s=128, num_warps=4, num_stages=2)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("softening", "G", "box_size", "interpret")
+    jax.jit,
+    static_argnames=("softening", "G", "box_size", "interpret", "tile_t",
+                     "tile_s", "num_warps", "num_stages"),
 )
-def direct_forces_pallas(
-    pos: jnp.ndarray,     # [N, 3]
-    mass: jnp.ndarray,    # [N]
-    softening: float = 0.05,
-    G: float = 1.0,
-    box_size: float | None = None,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Blocked direct-summation acceleration via a Pallas TPU kernel.
+def direct_forces_triton(pos, mass, softening: float = 0.05, G: float = 1.0,
+                         box_size: float | None = None,
+                         interpret: bool = False,
+                         tile_t: int = TRITON_CONFIG["tile_t"],
+                         tile_s: int = TRITON_CONFIG["tile_s"],
+                         num_warps: int = TRITON_CONFIG["num_warps"],
+                         num_stages: int = TRITON_CONFIG["num_stages"]):
+    """Blocked direct-summation acceleration ``[N, 3]`` through a
+    Pallas Triton kernel (``interpret=True`` runs it on the CPU)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
-    ``box_size`` enables per-pair minimum-image wrapping (the jnp
-    periodic path materializes the [N, N, 3] displacement tensor; here
-    it stays tile-local in VMEM).  ``interpret=True`` runs the kernel in
-    interpreter mode (CPU tests).
-    """
-    if not _HAS_PALLAS:
-        raise RuntimeError("pallas unavailable in this environment")
     n = pos.shape[0]
-    n_pad = round_up(n, max(_TILE_T, _TILE_S))
-    soa = jnp.moveaxis(pos.astype(jnp.float32), -1, 0)     # [3, N]
-    soa = jnp.pad(soa, ((0, 0), (0, n_pad - n)))
-    m = jnp.pad(mass.astype(jnp.float32), (0, n_pad - n))  # zero-mass pad
-
-    n_t_tiles = n_pad // _TILE_T
-    n_s_tiles = n_pad // _TILE_S
+    soa = jnp.moveaxis(pos.astype(jnp.float32), -1, 0)        # [3, N]
     kernel = functools.partial(
-        _force_kernel,
+        _force_kernel, n=n, tile_t=tile_t, tile_s=tile_s,
         eps2=float(softening * softening),
-        n_src_tiles=n_s_tiles,
         box=None if box_size is None else float(box_size),
     )
-    # inputs stay whole in (compiler-chosen) memory; each program slices
-    # its target tile and streams source tiles
+    out = jax.ShapeDtypeStruct((n,), jnp.float32)
     ax, ay, az = pl.pallas_call(
         kernel,
-        grid=(n_t_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM) for _ in range(4)
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, _TILE_T), lambda i: (0, i), memory_space=pltpu.VMEM
-            )
-            for _ in range(3)
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n_pad), jnp.float32) for _ in range(3)
-        ],
+        grid=(pl.cdiv(n, tile_t),),
+        out_shape=(out, out, out),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages),
         interpret=interpret,
-    )(
-        soa[0][None, :], soa[1][None, :], soa[2][None, :], m[None, :]
-    )
-    acc = jnp.stack([ax[0, :n], ay[0, :n], az[0, :n]], axis=-1)
-    return G * acc
+        name="direct_forces",
+    )(soa[0], soa[1], soa[2], mass.astype(jnp.float32))
+    return G * jnp.stack([ax, ay, az], axis=-1)
+
+
+@functools.partial(
+    jax.jit, static_argnames=("softening", "G", "box_size", "tile")
+)
+def direct_forces_blocked(pos, mass, softening: float = 0.05, G: float = 1.0,
+                          box_size: float | None = None, tile: int = 256):
+    """The plain-XLA blocked form of :func:`direct_forces_triton`:
+    ``lax.map`` over target tiles, each one fused ``[tile, N]`` pair
+    reduction (zero-mass padding of the ragged last tile)."""
+    n = pos.shape[0]
+    n_pad = -n % tile
+    soa = jnp.moveaxis(pos.astype(jnp.float32), -1, 0)        # [3, N]
+    tgt = jnp.pad(soa, ((0, 0), (0, n_pad))).reshape(3, -1, tile)
+    m = mass.astype(jnp.float32)
+    eps2 = float(softening * softening)
+    box = None if box_size is None else float(box_size)
+
+    def one_tile(t):
+        terms = _pair_terms(t[0], t[1], t[2], soa[0], soa[1], soa[2], m,
+                            eps2, box)
+        return jnp.stack([jnp.sum(x, axis=1) for x in terms], axis=-1)
+
+    acc = jax.lax.map(one_tile, jnp.moveaxis(tgt, 1, 0))     # [k, T, 3]
+    return G * acc.reshape(-1, 3)[:n]

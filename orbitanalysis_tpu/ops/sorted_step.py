@@ -1,13 +1,14 @@
-"""Sorted-carry variant of the fused per-snapshot orbit step.
+"""Sorted-carry and stable-layout (aligned) variants of the per-snapshot
+orbit step.
 
 Same semantics as :func:`orbitanalysis_tpu.ops.apsis.make_orbit_step`
 with event compaction (the reference's ``compare_radial_velocities`` +
 ``calc_angles`` chain, ``/root/reference/orbitanalysis/track_orbits.py:
-293-351``), but the carried per-particle state is kept **sorted by
-particle ID** between steps instead of in snapshot load order.
+293-351``), with the carried per-particle state laid out differently.
 
-Why (measured on v5e): the general step's cost is three ``lax.sort``
-networks per snapshot —
+**Sorted carry** (:func:`make_sorted_orbit_step`): the carry is kept
+sorted by particle ID between steps instead of in snapshot load order.
+The general step's cost is three ``lax.sort`` networks per snapshot —
 
   1. merge sort of ``concat(prev, cur)`` by ID   (the join),
   2. restore sort back to slot order             (layout restoration),
@@ -25,14 +26,10 @@ list — already in previous-snapshot load order, the reference's
 within-halo output order (``track_orbits.py:199-217``) — in positions
 ``[P:P+K]``.  One 2P sort replaces a 2P sort plus a P sort.
 
-Keeping the carry ID-sorted also makes the *prev* half of the join
-presorted, which unlocks replacing the merge sort (1) with a true
-bitonic **merge** — ``log2(2P)`` compare-exchange stages instead of a
-full ``O(log^2)`` sort network — implemented as a VMEM-resident Pallas
-kernel in :mod:`orbitanalysis_tpu.ops.pallas_merge` (``merge_impl=
-"pallas"``; the current snapshot's side is first sorted by a plain
-P-length ``lax.sort``, which is both shorter and carries fewer
-channels than the 2P concat sort it replaces).
+**Aligned carry** (:func:`make_aligned_native_step`): the host staging
+assigns every particle a persistent row position, so prev and cur are
+aligned element-wise and the device runs no join at all; detection is
+elementwise and only the event compaction (``ops/compact.py``) is not.
 
 The compact event outputs are **identical** (same IDs, same order, same
 angles) to the general step's ``ev_*`` outputs; only the carry layout
@@ -50,31 +47,16 @@ import jax.numpy as jnp
 import numpy as np
 
 from orbitanalysis_tpu.ops.geometry import region_frame
+from orbitanalysis_tpu.utils.numerics import acos_f32, f16_bits_rne
 from orbitanalysis_tpu.utils.padding import invalid_id_for
 
-#: Largest per-row capacity the fused kernel fits in VMEM (the whole
-#: 2P merged row stays on-chip).  P=131072 compiles and matches the
-#: lax_sort reference on v5e since the unmerge redesign freed the
-#: former compaction buffers; P=262144 exceeds practical Mosaic
-#: compile times (>9 min) and is untested.
-MAX_FUSED_CAPACITY = 131072
-
-#: Capacity ceiling the tracker's ``join_impl='auto'`` accepts before
-#: falling back to the general path: P=131072 compiles and is correct,
-#: but its ~10-minute Mosaic compile is opt-in (explicit
-#: ``join_impl='sorted'``), not something 'auto' should spring on a run.
-AUTO_FUSED_CAPACITY = 65536
-
-#: Per-row ceiling of the ALIGNED engine's default (detect_impl='xla')
-#: path: detection is plain elementwise XLA — no merged row, no
-#: VMEM-resident 10-stream kernel — and only the event compaction
-#: enters Pallas (2-3 u32 streams per row; ~8 MB VMEM at this width).
-#: Rows past the single-word positional-payload budget route through
-#: compact_payload_pair automatically.  This is the big-halo x wide-ID
-#: exit: a halo outgrowing MAX_FUSED_CAPACITY keeps tracking on the
-#: aligned engine instead of demanding a general-engine conversion
-#: (which 64-bit surrogate IDs cannot take without x64).
-MAX_ALIGNED_CAPACITY = 1 << 19
+#: Per-row capacity ceiling of the sorted and aligned engines: the
+#: packed ``sv`` channel holds the load-order slot in bits 0-23 (the
+#: radial-velocity sign bits and the aligned staging's FRESH flag sit
+#: above it, ``engine/packing.py``), so a row holds at most 2**24
+#: entries.  Rows wider than the single-word payload's
+#: ``PAYLOAD_MAX_ROW`` take the two-word event format automatically.
+MAX_ROW_CAPACITY = 1 << 24
 
 #: key_B value for merged entries that are neither part of the next
 #: carry nor an apsis event (departed / padding / matched-away prev).
@@ -101,8 +83,8 @@ class SortedCarry(NamedTuple):
 
 
 class CompactEvents(NamedTuple):
-    """Per-step compact apsis events, previous-snapshot load order
-    (or ID order with the load slots alongside — ``events_id_order``)."""
+    """Per-step compact apsis events: previous-snapshot load order, or
+    layout order with the previous load slots alongside (``slots``)."""
 
     count: jnp.ndarray     # [H] int32 apsides per halo (exact, may be > K)
     ids: jnp.ndarray       # [H, K] event particle IDs
@@ -116,7 +98,7 @@ class CompactEvents(NamedTuple):
     #: host recover EVERY event exactly when ``count > K`` truncated
     #: the compacted lists (the tracker's event-capacity growth path),
     #: with no step re-run; decode angles as the f32 bits cast to f16
-    #: (RNE — identical bits to the kernel's in-VMEM encode).
+    #: (RNE — identical bits to the device's f16_bits_rne encode).
     payload: jnp.ndarray | tuple | None = None
 
 
@@ -145,11 +127,10 @@ def presort_snapshot(batch, soa: bool = False):
 
     Sorts each halo row ascending by particle ID (padding sentinels
     last, they are the dtype max) and records the original load-order
-    slots in ``batch.slot``, for ``make_sorted_orbit_step(...,
-    cur_presorted=True)``.  Accepts ``[H, P]`` or stacked ``[S, H, P]``
-    batches; runs in NumPy at staging time (the point is to move the
-    per-snapshot sort out of the device step and into the host
-    pipeline, which overlaps with device compute in the tracker).
+    slots in ``batch.slot``, for :func:`make_sorted_orbit_step`
+    (the tracker's sorted engine stages rows this way).  Accepts
+    ``[H, P]`` or stacked ``[S, H, P]`` batches; runs in NumPy at
+    staging time.
 
     ``soa=True`` additionally stages ``pos``/``vel`` in structure-of-
     arrays ``[3, H, P]`` (stacked: ``[S, 3, H, P]``) layout for
@@ -195,125 +176,29 @@ def _shift_left(x, fill):
     return jnp.concatenate([x[:, 1:], jnp.full_like(x[:, :1], fill)], axis=1)
 
 
-def _decode_packed_angles(packed):
-    """Split the compacted carry channel — the single bit-layout contract
-    shared by the fused kernel and the compaction path: f32 angle in
-    bits 0-30 (angles are non-negative, the sign bit is free), matched
-    flag in bit 31."""
-    match = (packed >> 31).astype(jnp.uint8)
-    ang = jax.lax.bitcast_convert_type(
-        packed & jnp.uint32(0x7FFFFFFF), jnp.float32
-    )
-    return match, ang
-
-
-def _carry_from_channels(key_asc, sv_asc, rx, ry, rz, angles, match, id_dt):
-    """Assemble the next SortedCarry from ID-ascending channels (packed
-    key ``id << 1 | side``; sv = ``slot | vrb << 24``)."""
-    return SortedCarry(
-        ids=(key_asc >> 1).astype(id_dt),
-        slot=sv_asc & 0x00FFFFFF,
-        vrb=(sv_asc >> 24).astype(jnp.uint8) | (match << 2),
-        rhat=jnp.stack([rx, ry, rz]),
-        angles=angles,
-    )
-
-
-def _finish_events(count, ev_ids, ev_slot, ev_ang, K, invalid, id_dt,
-                   angle_dtype, id_order):
-    """Mask compacted event channels past each row's count, then either
-    keep ID order (slots alongside, host restores reference order) or
-    slot-sort on device.  Returns ``(ids, angles, slots_or_None)``."""
-    h, k128 = ev_ids.shape
-    kiota = jax.lax.broadcasted_iota(jnp.int32, (h, k128), 1)
-    ev_ok = kiota < count[:, None]
-    ids_raw = jnp.where(ev_ok, ev_ids, jnp.asarray(invalid, id_dt))
-    ang_raw = jnp.where(ev_ok, ev_ang, jnp.asarray(0, angle_dtype))
-    if id_order:
-        return (
-            ids_raw[:, :K],
-            ang_raw[:, :K],
-            jnp.where(ev_ok, ev_slot, -1)[:, :K],
-        )
-    _, ids_o, ang_o = jax.lax.sort(
-        (jnp.where(ev_ok, ev_slot, jnp.int32(_DEAD_KEY)), ids_raw, ang_raw),
-        dimension=-1,
-        num_keys=1,
-    )
-    return ids_o[:, :K], ang_o[:, :K], None
-
-
 def make_sorted_orbit_step(
     event_capacity: int,
     mode: str = "pericentric",
     box_size=None,
     id_dtype=jnp.int32,
     angle_dtype=jnp.float32,
-    merge_impl: str = "lax_sort",
-    compact_impl: str = "lax_sort",
-    cur_presorted: bool = False,
-    fused: bool = False,
-    events_id_order: bool = False,
     soa_batch: bool = False,
 ):
     """Build the sorted-carry per-snapshot step.
 
     Returns ``step(carry, snap) -> (carry, CompactEvents)`` — pure,
     static-shape, jit/scan/shard_map-ready.  ``snap`` is the same
-    :class:`orbitanalysis_tpu.ops.apsis.SnapshotBatch` (load-order
-    layout) the general step takes.
-
-    ``merge_impl``: ``"lax_sort"`` merges prev+cur with one 2P variadic
-    sort (prev sortedness unexploited); ``"pallas"`` pre-sorts the cur
-    side (P-length sort) and merges with the VMEM-resident bitonic
-    merge kernel.
-
-    ``cur_presorted=True`` declares that each snapshot row arrives
-    already ID-sorted ascending (padding sentinels last) — the staged
-    layout produced by :func:`presort_snapshot` / a sorting loader —
-    with the original load-order slots in ``snap.slot``.  The cur-side
-    sort then disappears from the step entirely (with
-    ``merge_impl="pallas"`` the join is just the bitonic merge); event
-    output order still follows the original load order, so savefile
-    parity with the reference is unaffected.
-
-    On the ``fused`` path the event tensors are at most ``[H, P]`` wide
-    (a row cannot produce more than P apsides): ``event_capacity > P``
-    is clamped, so ``CompactEvents`` widths are ``min(K, P)`` there
-    (the non-fused paths keep width ``K``).
-
-    ``compact_impl``: ``"lax_sort"`` extracts the next carry + events
-    with one 2P variadic sort; ``"pallas"`` uses the log-shift stream
-    compaction kernel instead (plus a small ``[H, K]`` sort that puts
-    events in reference order).  With ``merge_impl="pallas"`` the next
-    carry is rebuilt from the cur-side sort directly and only the
-    angle/match channels cross the merged domain.  On event-capacity
-    overflow (``count > K``) the two impls may keep a different subset
-    of the row's events — callers must treat overflowing rows as
-    invalid either way.
+    :class:`orbitanalysis_tpu.ops.apsis.SnapshotBatch` the general step
+    takes, in any row order (``snap.slot``, when given, records each
+    entry's load-order slot — :func:`presort_snapshot` stages rows
+    ID-sorted this way; without it the row order is the load order).
+    The join is one 2P variadic ``lax.sort`` of prev + cur; events come
+    back in previous-snapshot load order, ``[H, K]`` wide.
     """
     if mode not in ("pericentric", "apocentric"):
         raise ValueError(
             "Orbit detection mode not recognized. Please specify either "
             "'pericentric' or 'apocentric'."
-        )
-    if merge_impl not in ("lax_sort", "pallas"):
-        raise ValueError(f"unknown merge_impl: {merge_impl!r}")
-    if compact_impl not in ("lax_sort", "pallas"):
-        raise ValueError(f"unknown compact_impl: {compact_impl!r}")
-    if fused:
-        # single-kernel path subsumes both pallas impls
-        merge_impl = compact_impl = "pallas"
-    if events_id_order and not fused:
-        raise ValueError("events_id_order requires fused=True")
-    if compact_impl == "pallas" and jnp.dtype(angle_dtype) != jnp.float32:
-        raise ValueError(
-            "compact_impl='pallas' packs the match bit into the f32 "
-            "angle sign bit; use angle_dtype=float32"
-        )
-    if compact_impl == "pallas" and jnp.dtype(id_dtype).itemsize != 4:
-        raise ValueError(
-            "compact_impl='pallas' requires 32-bit particle IDs"
         )
     pericentric = mode == "pericentric"
     invalid = invalid_id_for(id_dtype)
@@ -324,11 +209,6 @@ def make_sorted_orbit_step(
     pack_key = (
         id_dt.itemsize * 8 <= 32 and jnp.issubdtype(id_dt, jnp.signedinteger)
     )
-    if merge_impl == "pallas" and not pack_key:
-        raise ValueError(
-            "merge_impl='pallas' requires <=32-bit signed particle IDs "
-            "(single packed uint32 sort key); use merge_impl='lax_sort'"
-        )
     K = int(event_capacity)
 
     def step(carry: SortedCarry, snap):
@@ -359,172 +239,41 @@ def make_sorted_orbit_step(
         def cat(a, b):
             return jnp.concatenate([a, b], axis=1)
 
-        if merge_impl == "pallas":
-            from orbitanalysis_tpu.ops.pallas_merge import (
-                merge_rows,
-                sort_descending_u32,
+        if pack_key:
+            keys = cat(
+                carry.ids.astype(jnp.uint32) << 1,
+                (snap.ids.astype(jnp.uint32) << 1) | 1,
             )
-
-            # sort the cur side alone (P-length; the prev side is already
-            # sorted in the carry), then bitonic-merge the halves in VMEM.
-            # The cur half must be *descending* so the concatenation is
-            # bitonic: free via a complemented sort key, or a flip when
-            # the staged rows are already ascending (cur_presorted).
-            cur_key = (snap.ids.astype(jnp.uint32) << 1) | 1
-            prev_key = carry.ids.astype(jnp.uint32) << 1
-            cur_asc = (cur_key, cur_sv, frame.rhat[0], frame.rhat[1],
-                       frame.rhat[2])
-            if cur_presorted:
-                cur_ops = None if fused else tuple(
-                    jnp.flip(x, axis=1) for x in cur_asc
-                )
-            else:
-                cur_ops = sort_descending_u32(*cur_asc)
-
-            if fused:
-                from orbitanalysis_tpu.ops.pallas_step import (
-                    fused_join_detect,
-                    fused_static_detect,
-                )
-
-                prev_ops6 = (prev_key, prev_sv, carry.rhat[0],
-                             carry.rhat[1], carry.rhat[2], carry.angles)
-                k_eff = min(K, p)  # events <= P; keeps branch widths equal
-                if cur_presorted:
-                    # static-membership fast path: identical ID layout to
-                    # the carry means matched pairs are already aligned —
-                    # skip the merge and the carry compaction entirely
-                    # (the integrator/scan regime, and slow-churn offline
-                    # tracking).  The flip staging only runs in the
-                    # general branch.
-                    static_ok = jnp.all((prev_key | 1) == cur_key)
-
-                    def _static(po, ca):
-                        # aligned pairs -> detection is elementwise: run
-                        # it in XLA (HBM copy speed) and keep only the
-                        # sparse event compaction in a kernel (3 streams
-                        # vs 10) — same split as the aligned engine's
-                        # detect_impl='xla'; the Cephes _acos_f32 keeps
-                        # angles bit-compatible with the kernel branch
-                        from orbitanalysis_tpu.ops.pallas_compact import (
-                            compact_events,
-                        )
-                        from orbitanalysis_tpu.ops.pallas_step import (
-                            _acos_f32,
-                        )
-
-                        pk_, psv_, prx_, pry_, prz_, pang_ = po
-                        ck_, csv_, crx_, cry_, crz_ = ca
-                        valid = (ck_ >> 1) != jnp.uint32(invalid)
-                        vrb_p = psv_ >> 24
-                        vrb_c = csv_ >> 24
-                        cosang = jnp.clip(
-                            prx_ * crx_ + pry_ * cry_ + prz_ * crz_,
-                            -1.0, 1.0,
-                        )
-                        dth = jnp.where(valid, _acos_f32(cosang), 0.0)
-                        if pericentric:
-                            flp = ((vrb_p & 1) > 0) & ((vrb_c & 2) > 0)
-                        else:
-                            flp = ((vrb_p & 2) > 0) & ((vrb_c & 1) > 0)
-                        aps = valid & flp
-                        acc = pang_ + dth
-                        pck = jax.lax.bitcast_convert_type(
-                            jnp.where(aps | ~valid, 0.0, acc), jnp.uint32
-                        ) | (valid.astype(jnp.uint32) << 31)
-                        evp_in = jax.lax.bitcast_convert_type(
-                            jnp.where(aps, acc, 0.0), jnp.uint32
-                        ) | (aps.astype(jnp.uint32) << 31)
-                        cnt = jnp.sum(aps, axis=-1, dtype=jnp.int32)
-                        ek, es, ep = compact_events(
-                            evp_in, ck_, psv_, k_eff
-                        )
-                        ea = jax.lax.bitcast_convert_type(
-                            ep & jnp.uint32(0x7FFFFFFF), jnp.float32
-                        )
-                        return pck, ek, es, ea, cnt
-
-                    def _general(po, ca):
-                        co = tuple(jnp.flip(x, axis=1) for x in ca)
-                        pck, ek, es, ea, cnt = fused_join_detect(
-                            po, co, pericentric, invalid, k_eff
-                        )
-                        # kernel's packed plane follows the staged
-                        # (descending) cur order; one flip -> ascending
-                        return jnp.flip(pck, axis=1), ek, es, ea, cnt
-
-                    packed, evk, evsv, evang, count = jax.lax.cond(
-                        static_ok, _static, _general, prev_ops6, cur_asc
-                    )
-                    asc = cur_asc
-                else:
-                    packed, evk, evsv, evang, count = fused_join_detect(
-                        prev_ops6, cur_ops, pericentric, invalid, k_eff,
-                    )
-                    packed = jnp.flip(packed, axis=1)
-                    asc = tuple(jnp.flip(x, axis=1) for x in cur_ops)
-                match_o, ang_o = _decode_packed_angles(packed)
-                new_carry = _carry_from_channels(
-                    asc[0], asc[1], asc[2], asc[3], asc[4], ang_o,
-                    match_o, id_dt,
-                )
-                ev_ids, ev_angles, ev_slots = _finish_events(
-                    count, (evk >> 1).astype(id_dt), evsv & 0x00FFFFFF,
-                    evang, K, invalid, id_dt, angle_dtype,
-                    id_order=events_id_order,
-                )
-                return new_carry, CompactEvents(
-                    count=count,
-                    ids=ev_ids,
-                    angles=ev_angles,
-                    bulk_vel=frame.bulk_vel,
-                    slots=ev_slots,
-                )
-            zeros_ang = jnp.zeros((h, p), angle_dtype)
-            merged = merge_rows(
-                (prev_key, prev_sv, carry.rhat[0], carry.rhat[1],
-                 carry.rhat[2], carry.angles),
-                cur_ops + (zeros_ang,),
+            num_keys = 1
+            head = (keys,)
+        else:
+            keys = cat(carry.ids, snap.ids)
+            side = cat(
+                jnp.zeros((h, p), jnp.uint8), jnp.ones((h, p), jnp.uint8)
             )
-            k_s, sv_s, rx_s, ry_s, rz_s, ang_s = merged
+            num_keys = 2
+            head = (keys, side)
+        sorted_ops = jax.lax.sort(
+            head
+            + (
+                cat(prev_sv, cur_sv),
+                cat(carry.rhat[0], frame.rhat[0]),
+                cat(carry.rhat[1], frame.rhat[1]),
+                cat(carry.rhat[2], frame.rhat[2]),
+                cat(carry.angles, jnp.zeros((h, p), angle_dtype)),
+            ),
+            dimension=-1,
+            num_keys=num_keys,
+        )
+        if pack_key:
+            k_s = sorted_ops[0]
             is_cur = (k_s & 1) == 1
             ids_s = (k_s >> 1).astype(id_dt)
+            sv_s, rx_s, ry_s, rz_s, ang_s = sorted_ops[1:]
         else:
-            if pack_key:
-                keys = cat(
-                    carry.ids.astype(jnp.uint32) << 1,
-                    (snap.ids.astype(jnp.uint32) << 1) | 1,
-                )
-                num_keys = 1
-                head = (keys,)
-            else:
-                keys = cat(carry.ids, snap.ids)
-                side = cat(
-                    jnp.zeros((h, p), jnp.uint8), jnp.ones((h, p), jnp.uint8)
-                )
-                num_keys = 2
-                head = (keys, side)
-            sorted_ops = jax.lax.sort(
-                head
-                + (
-                    cat(prev_sv, cur_sv),
-                    cat(carry.rhat[0], frame.rhat[0]),
-                    cat(carry.rhat[1], frame.rhat[1]),
-                    cat(carry.rhat[2], frame.rhat[2]),
-                    cat(carry.angles, jnp.zeros((h, p), angle_dtype)),
-                ),
-                dimension=-1,
-                num_keys=num_keys,
-            )
-            if pack_key:
-                k_s = sorted_ops[0]
-                is_cur = (k_s & 1) == 1
-                ids_s = (k_s >> 1).astype(id_dt)
-                sv_s, rx_s, ry_s, rz_s, ang_s = sorted_ops[1:]
-            else:
-                ids_s, side_s = sorted_ops[0], sorted_ops[1]
-                is_cur = side_s == 1
-                sv_s, rx_s, ry_s, rz_s, ang_s = sorted_ops[2:]
+            ids_s, side_s = sorted_ops[0], sorted_ops[1]
+            is_cur = side_s == 1
+            sv_s, rx_s, ry_s, rz_s, ang_s = sorted_ops[2:]
         slot_s = sv_s & 0x00FFFFFF
         vrb_s = (sv_s >> 24).astype(jnp.uint8)
 
@@ -563,82 +312,38 @@ def make_sorted_orbit_step(
         ev_angle_prev = _shift_left(apsis_angle, jnp.asarray(0, angle_dtype))
         count = jnp.sum(apsis, axis=-1, dtype=jnp.int32)
 
-        if compact_impl == "pallas":
-            from orbitanalysis_tpu.ops.pallas_compact import compact_rows
+        # ---- one sort: next carry to the front (stable keeps ID
+        # order), events next (in prev load-slot order), dead last
+        key_b = jnp.where(
+            is_cur,
+            jnp.int32(0),
+            jnp.where(apsis_prev, jnp.int32(1) + slot_s, jnp.int32(_DEAD_KEY)),
+        )
+        angle_b = jnp.where(is_cur, angle_new, ev_angle_prev)
+        # bit2 of vrb: this cur entry matched (entered = valid & ~bit2)
+        sv_b = slot_s | (
+            (vrb_s | (match_cur.astype(jnp.uint8) << 2)).astype(jnp.int32)
+            << 24
+        )
 
-            # the match flag rides the angle's (always-clear) sign bit,
-            # so the carry extraction is a single-channel compaction
-            packed = jax.lax.bitcast_convert_type(angle_new, jnp.uint32) | (
-                match_cur.astype(jnp.uint32) << 31
-            )
-            k128 = ((K + 127) // 128) * 128
-            if merge_impl == "pallas":
-                # next carry = the cur-side sort (ascending = flipped
-                # descending); only packed angles cross the merged domain
-                ops_a = (packed,)
-            else:
-                ops_a = (k_s, sv_s, rx_s, ry_s, rz_s, packed)
-            a_out, (ev_id, ev_slot, ev_ang) = compact_rows(
-                is_cur.astype(jnp.int32), ops_a, p,
-                apsis_prev.astype(jnp.int32),
-                (ids_s, slot_s, ev_angle_prev), k128,
-            )
-            match_o, ang_o = _decode_packed_angles(a_out[-1])
-            if merge_impl == "pallas":
-                if cur_presorted:
-                    asc = cur_asc
-                else:
-                    asc = tuple(jnp.flip(x, axis=1) for x in cur_ops)
-                carry_chans = asc[:5]
-            else:
-                carry_chans = a_out[:5]
-            new_carry = _carry_from_channels(
-                *carry_chans, ang_o, match_o, id_dt
-            )
-            # events arrive in merged (ID) order; a small [H, K] sort by
-            # previous load slot restores the reference's output order
-            ev_ids, ev_angles, _ = _finish_events(
-                count, ev_id, ev_slot, ev_ang, K, invalid, id_dt,
-                angle_dtype, id_order=False,
-            )
-        else:
-            # ---- one sort: next carry to the front (stable keeps ID
-            # order), events next (in prev load-slot order), dead last
-            key_b = jnp.where(
-                is_cur,
-                jnp.int32(0),
-                jnp.where(apsis_prev, jnp.int32(1) + slot_s, jnp.int32(_DEAD_KEY)),
-            )
-            angle_b = jnp.where(is_cur, angle_new, ev_angle_prev)
-            # bit2 of vrb: this cur entry matched (entered = valid & ~bit2)
-            sv_b = slot_s | (
-                (vrb_s | (match_cur.astype(jnp.uint8) << 2)).astype(
-                    jnp.int32
-                )
-                << 24
-            )
+        out = jax.lax.sort(
+            (key_b, ids_s, sv_b, rx_s, ry_s, rz_s, angle_b),
+            dimension=-1,
+            num_keys=1,
+        )
+        _, ids_o, sv_o, rx_o, ry_o, rz_o, ang_o = out
 
-            out = jax.lax.sort(
-                (key_b, ids_s, sv_b, rx_s, ry_s, rz_s, angle_b),
-                dimension=-1,
-                num_keys=1,
-            )
-            _, ids_o, sv_o, rx_o, ry_o, rz_o, ang_o = out
-
-            new_carry = SortedCarry(
-                ids=ids_o[:, :p],
-                slot=sv_o[:, :p] & 0x00FFFFFF,
-                vrb=(sv_o[:, :p] >> 24).astype(jnp.uint8),
-                rhat=jnp.stack([rx_o[:, :p], ry_o[:, :p], rz_o[:, :p]]),
-                angles=ang_o[:, :p],
-            )
-            ev_ids = ids_o[:, p:p + K]
-            ev_angles = ang_o[:, p:p + K]
-
+        new_carry = SortedCarry(
+            ids=ids_o[:, :p],
+            slot=sv_o[:, :p] & 0x00FFFFFF,
+            vrb=(sv_o[:, :p] >> 24).astype(jnp.uint8),
+            rhat=jnp.stack([rx_o[:, :p], ry_o[:, :p], rz_o[:, :p]]),
+            angles=ang_o[:, :p],
+        )
         events = CompactEvents(
             count=count,
-            ids=ev_ids,
-            angles=ev_angles,
+            ids=ids_o[:, p:p + K],
+            angles=ang_o[:, p:p + K],
             bulk_vel=frame.bulk_vel,
         )
         return new_carry, events
@@ -647,18 +352,14 @@ def make_sorted_orbit_step(
 
 
 class AlignedCarry(NamedTuple):
-    """Carry of the carry-native aligned engine, stored in the detection
-    kernel's own packed channel formats — so the step has **no XLA
-    encode/decode around the kernel at all** (the former
-    ``same``/``prev_sv`` select, ``_decode_packed_angles``, and
-    ``_carry_from_channels`` read-modify-write passes over ``[H, P]``
-    planes disappear; the kernel streams these planes verbatim).
+    """Carry of the carry-native aligned engine, stored in the packed
+    channel formats the detect chain reads and writes — the step needs
+    no decode/encode pass over the ``[H, P]`` planes around detection.
 
-    ``key``: ``(id << 1) | 1`` (the staged cur key of the last step);
+    ``key``: ``(pos << 1) | 1`` (the staged cur key of the last step);
     ``sv``: ``load_slot | FRESH?<<27 | vrb<<24`` (last step's staged
     ``csv``); ``rhat``: last snapshot's radial unit vectors;
-    ``packed``: f32 angle accumulator in bits 0-30, match flag bit 31
-    (the kernel's ``out_packed`` verbatim).
+    ``packed``: f32 angle accumulator in bits 0-30, match flag bit 31.
     """
 
     key: jnp.ndarray     # [H, P] uint32
@@ -733,23 +434,15 @@ def encode_aligned_carry(c: SortedCarry) -> AlignedCarry:
 
 def aligned_detect_math(carry: AlignedCarry, valid_cur, slot, frame,
                         pericentric: bool, invalid,
-                        rhat_packed: bool = False,
-                        share_angles: bool = False):
-    """The aligned engine's XLA detect chain as one shared function —
-    positional keys, FRESH gating, sign-flip detection, angle
-    accumulation, packed-carry encode, and the u32 event payload
-    plane.  Factored out so probe/ablation code times EXACTLY the
-    shipping math (`benchmarks/aligned_ablation.py` hand-duplicated it
-    through round 4 and had drifted to id-based keys — round-4
-    advisor item 2).
+                        rhat_packed: bool = False):
+    """The aligned engine's detect chain: positional keys, FRESH
+    gating, sign-flip detection, angle accumulation and the packed
+    carry encode — all elementwise over ``[H, P]`` planes.
 
     Returns ``(cur_key, cur_sv, apsis, angle_acc, packed, ang15,
-    count, pos_iota)`` — everything
-    :func:`make_aligned_native_step`'s xla branch needs around the
-    compaction kernel.
+    count, pos_iota)`` — everything :func:`make_aligned_native_step`
+    needs around the event compaction.
     """
-    from orbitanalysis_tpu.ops.pallas_label import f16_bits_rne
-    from orbitanalysis_tpu.ops.pallas_step import _acos_f32
     from orbitanalysis_tpu.utils.numerics import oct_decode
 
     h, p = valid_cur.shape
@@ -772,31 +465,19 @@ def aligned_detect_math(carry: AlignedCarry, valid_cur, slot, frame,
         + prev_rhat[2] * frame.rhat[2],
         -1.0, 1.0,
     )
-    dtheta = jnp.where(valid_cur, _acos_f32(cosang), 0.0)
+    dtheta = jnp.where(valid_cur, acos_f32(cosang), 0.0)
     if pericentric:
         flip = ((vrb_p & 1) > 0) & ((cur_vrb & 2) > 0)
     else:
         flip = ((vrb_p & 2) > 0) & ((cur_vrb & 1) > 0)
     apsis = valid_cur & flip & ~fresh
     angle_acc = jnp.where(fresh, 0.0, pang + dtheta)
-    if share_angles:
-        # materialize the accumulated angles once: angle_acc feeds TWO
-        # independent consumers (the packed carry and the payload's
-        # f16 encode), and without the barrier XLA places them in
-        # separate fusions that each recompute the full upstream
-        # geometry + arccos chain — measured 5.9 ms/scan of duplicated
-        # work at the bench shape (benchmarks/extract_decomp_probe.py
-        # d+ang15 vs detect) versus one 8.4 MB plane round-trip
-        apsis, angle_acc = jax.lax.optimization_barrier(
-            (apsis, angle_acc))
     packed = jax.lax.bitcast_convert_type(
         jnp.where(apsis | ~valid_cur, 0.0, angle_acc),
         jnp.uint32,
     ) | ((valid_cur & ~fresh).astype(jnp.uint32) << 31)
-    # integer RNE f32->f16 bits (pallas_label.f16_bits_rne,
-    # bit-identical to astype(float16) for the non-negative finite
-    # angles here): no [H, P] f16/u16 arrays means no 16-bit relayout
-    # passes in the extract phase
+    # integer RNE f32->f16 bits, bit-identical to astype(float16) for
+    # the non-negative finite angles here
     ang15 = f16_bits_rne(angle_acc)
     count = jnp.sum(apsis, axis=-1, dtype=jnp.int32)
     return (cur_key, cur_sv, apsis, angle_acc, packed, ang15, count,
@@ -809,9 +490,7 @@ def make_aligned_native_step(
     box_size=None,
     id_dtype=jnp.int32,
     angle_dtype=jnp.float32,
-    events_id_order: bool = True,
     soa_batch: bool = False,
-    detect_impl: str = "xla",
     rhat_packed: bool = False,
     emit_payload: bool = False,
 ):
@@ -819,48 +498,19 @@ def make_aligned_native_step(
 
     Semantically identical to :func:`make_aligned_orbit_step` (same
     staged-snapshot contract, same :class:`CompactEvents` outputs), but
-    the carry is an :class:`AlignedCarry` held in the kernel's packed
-    channel formats and the tenant-change (FRESH) flag is computed by
-    the *host staging* (bit 27 of ``snap.slot``,
+    the carry is an :class:`AlignedCarry` held in packed channel
+    formats and the tenant-change (FRESH) flag is computed by the *host
+    staging* (bit 27 of ``snap.slot``,
     :data:`orbitanalysis_tpu.engine.packing.FRESH_BIT`) instead of a
-    device-side ID compare.  What that buys (measured round 2: the
-    static kernel ran at its ~34 ms DMA floor at 67M particles while
-    the full step took ~56 ms): every XLA read-modify-write pass over
-    the ``[H, P]`` planes around the kernel disappears —
+    device-side ID compare: the staged ``cur_key``/``cur_sv`` are the
+    next carry's key/sv planes, the packed angle plane is stored as
+    computed, and ``frame.rhat`` is stored as-is.
 
-      - no ``same = snap.ids == carry.ids`` compare + ``prev_sv``
-        select: the kernel streams ``carry.sv``/``carry.packed``
-        verbatim and suppresses stale prev state from the staged FRESH
-        bit in-kernel;
-      - no ``_decode_packed_angles`` / ``_carry_from_channels``
-        re-encode: the kernel's ``out_packed`` *is* the next carry's
-        angle plane, and the staged ``cur_key``/``cur_sv`` are the next
-        carry's key/sv planes;
-      - no ``jnp.stack`` copy of the rhat planes: ``frame.rhat`` is
-        stored as-is.
-
-    The remaining per-step XLA work is ``region_frame`` (genuine
-    geometry) plus the fused key/sv bit-packing of the staged inputs.
-
-    ``detect_impl`` picks where the (elementwise) detection math runs:
-
-    - ``'xla'`` (default): sign-flip detection, angle accumulation, and
-      carry packing are plain XLA elementwise ops — they fuse into
-      single passes streaming at HBM copy speed (~880 GB/s on v5e) —
-      and only the sparse event extraction enters a Pallas kernel
-      (:func:`orbitanalysis_tpu.ops.pallas_compact.compact_events`,
-      THREE input streams).  On the aligned layout nothing else needs
-      a kernel: there is no merge, so no cross-lane dependency.  The
-      arccos is the same Cephes polynomial the kernels use
-      (:func:`orbitanalysis_tpu.ops.pallas_step._acos_f32` is pure
-      jnp), so angles match the kernel path to the last ulp on CPU and
-      within 1 f32 ulp across backends.
-    - ``'pallas'``: the 10-stream
-      :func:`~orbitanalysis_tpu.ops.pallas_step.fused_static_detect`
-      kernel (``native=True``) — detection and compaction in one
-      ``pallas_call``, bounded by the measured ~225 GB/s per-kernel
-      DMA ceiling.  Kept for A/B measurement and as the
-      maximally-fused fallback.
+    Detection (sign flips, angle accumulation, carry packing) is plain
+    elementwise XLA; the only non-elementwise piece is the event
+    compaction (:mod:`orbitanalysis_tpu.ops.compact`).  The arccos is a
+    fixed polynomial (:func:`orbitanalysis_tpu.utils.numerics.acos_f32`)
+    so angles agree across backends.
 
     Requires snapshots staged by the stable-layout pipeline
     (``pack_snapshot_aligned`` / ``stage_batch_aligned``), whose
@@ -871,14 +521,23 @@ def make_aligned_native_step(
     :func:`make_aligned_orbit_step` — see there for the semantics
     citations.
 
-    ``emit_payload=True`` (xla detect only) additionally returns the
-    full pre-compaction event plane in ``CompactEvents.payload`` so a
-    host consumer can recover every event exactly when a row's count
+    Events are positional: ``CompactEvents.ids`` holds stable-layout
+    row positions (the host maps them through its staged tables), and
+    angles are f16-exact.  ``emit_payload=True`` additionally returns
+    the full pre-compaction event plane in ``CompactEvents.payload`` so
+    a host consumer can recover every event exactly when a row's count
     exceeds ``event_capacity`` — the tracker's event-capacity growth
     path (the reference has no static event bound at all,
-    ``track_orbits.py:199-217``; this keeps the bounded fast
-    compaction without making overflow lossy).
+    ``track_orbits.py:199-217``).
     """
+    from orbitanalysis_tpu.ops.compact import (
+        PAYLOAD_MAX_ROW,
+        compact_angle,
+        compact_payload_pair,
+        decode_payload,
+    )
+    from orbitanalysis_tpu.utils.numerics import oct_encode
+
     if mode not in ("pericentric", "apocentric"):
         raise ValueError(
             "Orbit detection mode not recognized. Please specify either "
@@ -895,21 +554,6 @@ def make_aligned_native_step(
             "the aligned engine requires 32-bit signed particle IDs "
             "(packed uint32 keys)"
         )
-    if detect_impl not in ("xla", "pallas"):
-        raise ValueError(f"unknown detect_impl: {detect_impl!r}")
-    if rhat_packed and detect_impl != "xla":
-        raise ValueError(
-            "rhat_packed requires detect_impl='xla' (the fused pallas "
-            "detect kernel streams f32 rhat planes)"
-        )
-    if emit_payload and detect_impl != "xla":
-        raise ValueError(
-            "emit_payload requires detect_impl='xla' (the pallas path "
-            "has no pre-compaction payload plane to expose)"
-        )
-    from orbitanalysis_tpu.ops.pallas_step import fused_static_detect
-    from orbitanalysis_tpu.utils.numerics import oct_encode
-
     pericentric = mode == "pericentric"
     invalid = invalid_id_for(id_dtype)
     K = int(event_capacity)
@@ -936,111 +580,48 @@ def make_aligned_native_step(
             hubble_drag=snap.hubble_drag,
             soa=soa_batch,
         )
-
-        k_eff = min(K, p)
-        if detect_impl == "xla":
-            from orbitanalysis_tpu.ops.pallas_compact import (
-                PAYLOAD_MAX_ROW,
-                compact_angle_blocked,
-                compact_payload_pair,
+        (cur_key, cur_sv, apsis, angle_acc, packed, ang15, count,
+         pos_iota) = aligned_detect_math(
+            carry, valid_cur, snap.slot, frame, pericentric,
+            invalid, rhat_packed=rhat_packed,
+        )
+        if p <= PAYLOAD_MAX_ROW:
+            # angle-word plane: f32 angle bits + apsis flag in bit 31
+            # (angles are non-negative); the payload word is built from
+            # it inside the compaction's fused pass
+            aw = jax.lax.bitcast_convert_type(
+                angle_acc, jnp.uint32
+            ) | (apsis.astype(jnp.uint32) << 31)
+            full_payload = aw if emit_payload else None
+            evpay, _ = compact_angle(aw, K)
+            ev_pos, evang = decode_payload(evpay)
+        else:
+            # the last position's pos + 1 = 2**17 would wrap the single
+            # payload word to zero: such rows take the two-word format
+            posw = jnp.where(
+                apsis, (pos_iota + 1).astype(jnp.uint32), jnp.uint32(0)
             )
-
-            # positional keys: the stable layout makes detection (and
-            # hence the event stream) purely positional — the key
-            # channel carries the row position, never the particle ID,
-            # and events come back as positions the host maps through
-            # its staged tables (IDs, prev load slots).  The slot
-            # channel already carries FRESH<<27 from staging; vrb
-            # lands in bits 24-25 (slot proper is < 2^24).  Payload
-            # word: ((pos + 1) << 15) | f16(angle) — angles are
-            # non-negative so their f16 encoding needs only 15 bits
-            # (the savefile stores f16 anyway), and the 17 bits above
-            # hold pos + 1 <= 2**17 - 1; zero = no event.  See
-            # aligned_detect_math for the full chain.
-            (cur_key, cur_sv, apsis, angle_acc, packed, ang15, count,
-             pos_iota) = aligned_detect_math(
-                carry, valid_cur, snap.slot, frame, pericentric,
-                invalid, rhat_packed=rhat_packed,
-            )
-            # At the 131072-row fused ceiling the LAST position's
-            # pos + 1 = 2**17 would wrap the single payload word to
-            # zero and drop the event, so such rows take the
-            # two-stream pair kernel.
-            if p <= PAYLOAD_MAX_ROW:
-                # angle-word stream: f32 angle bits + apsis flag in
-                # bit 31 (angles are non-negative).  The payload word
-                # (f16 encode, iota, select) is built INSIDE the
-                # compaction kernel — the XLA-side encode measured
-                # ~5 ms/scan of half-fused [H, P] passes at the bench
-                # shape (benchmarks/extract_decomp_probe.py)
-                aw = jax.lax.bitcast_convert_type(
-                    angle_acc, jnp.uint32
-                ) | (apsis.astype(jnp.uint32) << 31)
-                full_payload = aw if emit_payload else None
-                evpay = compact_angle_blocked(aw, k_eff)
-                ev_pos = (evpay >> 15).astype(jnp.int32) - 1
-                ev_ang_bits = evpay & jnp.uint32(0x7FFF)
-            else:
-                posw = jnp.where(
-                    apsis, (pos_iota + 1).astype(jnp.uint32), jnp.uint32(0)
-                )
-                full_payload = (posw, ang15) if emit_payload else None
-                evposw, ev_ang_bits = compact_payload_pair(
-                    posw, ang15, k_eff
-                )
-                ev_pos = evposw.astype(jnp.int32) - 1
+            full_payload = (posw, ang15) if emit_payload else None
+            evposw, ev_ang_bits, _ = compact_payload_pair(posw, ang15, K)
+            ev_pos = evposw.astype(jnp.int32) - 1
             evang = jax.lax.bitcast_convert_type(
                 ev_ang_bits.astype(jnp.uint16), jnp.float16,
             ).astype(angle_dtype)
-            new_carry = AlignedCarry(
-                key=cur_key, sv=cur_sv,
-                rhat=(oct_encode(frame.rhat) if rhat_packed
-                      else frame.rhat),
-                packed=packed,
-            )
-            kw = ev_pos.shape[1]
-            kiota = jax.lax.broadcasted_iota(jnp.int32, (h, kw), 1)
-            ev_ok = kiota < count[:, None]
-            return new_carry, CompactEvents(
-                count=count,
-                ids=jnp.where(ev_ok, ev_pos, jnp.int32(invalid))[:, :K],
-                angles=jnp.where(ev_ok, evang, 0.0)[:, :K],
-                bulk_vel=frame.bulk_vel,
-                slots=None,
-                payload=full_payload,
-            )
-
-        # pallas fallback path: same positional key/sv packing as
-        # aligned_detect_math, detection + compaction inside the
-        # 10-stream fused kernel
-        cur_vrb = _vr_bits(frame.vrad)
-        pos_iota = jax.lax.broadcasted_iota(jnp.int32, (h, p), 1)
-        inv_key = (jnp.uint32(invalid) << 1) | 1
-        cur_key = jnp.where(
-            valid_cur, (pos_iota.astype(jnp.uint32) << 1) | 1, inv_key
-        )
-        cur_sv = snap.slot | (cur_vrb.astype(jnp.int32) << 24)
-        packed, evk, evsv, evang, count = fused_static_detect(
-            (carry.key, carry.sv, carry.rhat[0], carry.rhat[1],
-             carry.rhat[2], carry.packed),
-            (cur_key, cur_sv, frame.rhat[0], frame.rhat[1],
-             frame.rhat[2]),
-            pericentric, invalid, k_eff, native=True,
-        )
         new_carry = AlignedCarry(
-            key=cur_key, sv=cur_sv, rhat=frame.rhat, packed=packed
+            key=cur_key, sv=cur_sv,
+            rhat=(oct_encode(frame.rhat) if rhat_packed else frame.rhat),
+            packed=packed,
         )
-        ev_ids, ev_angles, ev_slots = _finish_events(
-            count, (evk >> 1).astype(id_dt), evsv & 0x00FFFFFF,
-            evang, K, invalid, id_dt, angle_dtype,
-            id_order=events_id_order,
-        )
+        kw = ev_pos.shape[1]
+        ev_ok = jax.lax.broadcasted_iota(jnp.int32, (h, kw), 1) < (
+            count[:, None])
         return new_carry, CompactEvents(
             count=count,
-            ids=ev_ids,
-            angles=ev_angles,
+            ids=jnp.where(ev_ok, ev_pos, jnp.int32(invalid)),
+            angles=jnp.where(ev_ok, evang, 0.0),
             bulk_vel=frame.bulk_vel,
-            slots=ev_slots,
+            slots=None,
+            payload=full_payload,
         )
 
     return step
@@ -1052,44 +633,39 @@ def make_aligned_orbit_step(
     box_size=None,
     id_dtype=jnp.int32,
     angle_dtype=jnp.float32,
-    events_id_order: bool = True,
     soa_batch: bool = False,
 ):
-    """Stable-layout per-snapshot step: membership churn at static-path
-    speed, with **no device-side join at all**.
+    """Stable-layout per-snapshot step over a :class:`SortedCarry` —
+    the select-staged form of the aligned engine, kept as the in-repo
+    oracle for step-level parity tests of
+    :func:`make_aligned_native_step`.
 
-    The insight over :func:`make_sorted_orbit_step`: the device never
-    needed ID-*sorted* rows — it needs rows whose layout is *stable
-    across snapshots*.  Since the host stages every snapshot anyway
-    (the tracker is host-fed by construction), the staging pipeline can
-    assign each particle a persistent position
+    The device never needs ID-*sorted* rows — it needs rows whose
+    layout is *stable across snapshots*.  The host staging assigns each
+    particle a persistent position
     (:class:`orbitanalysis_tpu.engine.packing.StableLayout`: a matched
-    particle keeps its position, an entrant reuses a departure's hole).
-    Prev carry and staged cur are then aligned element-wise by
-    construction and the whole merge/unmerge/compaction chain of the
-    fused join kernel disappears — the step is
-    :func:`~orbitanalysis_tpu.ops.pallas_step.fused_static_detect` plus
-    a few streamed selects.  The O(N log N) work the reference's
-    ``myin1d`` join does per snapshot
+    particle keeps its position, an entrant reuses a departure's hole),
+    so prev carry and staged cur are aligned element-wise and detection
+    is elementwise.  The O(N log N) work the reference's ``myin1d``
+    join does per snapshot
     (``/root/reference/orbitanalysis/track_orbits.py:300-309``) becomes
-    integer bookkeeping on the host, overlapped with device compute by
-    the tracker's prefetch thread.
+    integer bookkeeping on the host.
 
     Positions whose tenant changed between snapshots (entrant, or a
-    reused hole) ride the FRESH flag (bit 27 of the prev ``sv``
-    channel): the kernel suppresses the stale prev state and restarts
-    the angle accumulation at exactly 0 — an entrant starts from zero,
-    the reference's semantics for newly tracked particles
-    (``/root/reference/orbitanalysis/track_orbits.py:337-344``) — and
-    zero prev sign bits mean no flip can fire on entry.
+    reused hole) are detected here by an ID compare against the carry:
+    the stale prev state is suppressed and the angle accumulation
+    restarts at exactly 0 — an entrant starts from zero, the
+    reference's semantics for newly tracked particles
+    (``/root/reference/orbitanalysis/track_orbits.py:337-344``).
 
     ``snap`` must be staged in the stable layout (``snap.slot`` maps
     positions back to the row's load order, as produced by
-    ``pack_snapshot_aligned``).  Events come back compacted with prev
-    load slots (``events_id_order=True``: position order + slots, the
-    host restores reference order by one [H, K] sort — identical
-    contract to the fused sorted engine's).
+    ``pack_snapshot_aligned``).  Events come back compacted in
+    position order with their previous load slots alongside (the host
+    restores reference order by one [H, K] sort).
     """
+    from orbitanalysis_tpu.ops.compact import compact_rows
+
     if mode not in ("pericentric", "apocentric"):
         raise ValueError(
             "Orbit detection mode not recognized. Please specify either "
@@ -1106,20 +682,18 @@ def make_aligned_orbit_step(
             "the aligned engine requires 32-bit signed particle IDs "
             "(packed uint32 keys)"
         )
-    from orbitanalysis_tpu.ops.pallas_step import fused_static_detect
-
     pericentric = mode == "pericentric"
     invalid = invalid_id_for(id_dtype)
     K = int(event_capacity)
 
     def step(carry: SortedCarry, snap):
         h, p = snap.ids.shape
-        valid_cur = snap.ids != invalid
+        valid = snap.ids != invalid
 
         frame = region_frame(
             snap.pos,
             snap.vel,
-            valid_cur,
+            valid,
             snap.center,
             mass=snap.mass,
             bulk_vel=snap.bulk_vel,
@@ -1131,42 +705,45 @@ def make_aligned_orbit_step(
         iota = jax.lax.broadcasted_iota(jnp.int32, (h, p), 1)
         cur_vrb = _vr_bits(frame.vrad)
         cur_slot = iota if snap.slot is None else snap.slot
-        cur_key = (snap.ids.astype(jnp.uint32) << 1) | 1
         cur_sv = cur_slot | (cur_vrb.astype(jnp.int32) << 24)
 
-        # continuing tenant at this position <=> carry state applies;
-        # otherwise the FRESH flag (bit 27) makes the kernel ignore the
-        # stale prev streams — no rhat/angle selects needed
+        # continuing tenant at this position <=> carry state applies
         same = snap.ids == carry.ids
-        prev_sv = jnp.where(
-            same,
-            carry.slot | ((carry.vrb & 3).astype(jnp.int32) << 24),
-            jnp.int32(1 << 27),
+        vrb_p = jnp.where(same, carry.vrb & 3, jnp.uint8(0))
+        cosang = jnp.clip(
+            carry.rhat[0] * frame.rhat[0]
+            + carry.rhat[1] * frame.rhat[1]
+            + carry.rhat[2] * frame.rhat[2],
+            -1.0, 1.0,
         )
+        dtheta = jnp.where(valid, acos_f32(cosang), 0.0)
+        if pericentric:
+            flip = ((vrb_p & 1) > 0) & ((cur_vrb & 2) > 0)
+        else:
+            flip = ((vrb_p & 2) > 0) & ((cur_vrb & 1) > 0)
+        apsis = valid & flip & same
+        angle_acc = jnp.where(same, carry.angles + dtheta, 0.0)
+        apsis_angle = jnp.where(apsis, angle_acc, 0.0)
+        angle_new = jnp.where(apsis | ~valid, 0.0, angle_acc)
+        match = (valid & same).astype(jnp.uint8)
 
-        k_eff = min(K, p)
-        packed, evk, evsv, evang, count = fused_static_detect(
-            (carry.ids.astype(jnp.uint32) << 1, prev_sv,
-             carry.rhat[0], carry.rhat[1], carry.rhat[2], carry.angles),
-            (cur_key, cur_sv, frame.rhat[0], frame.rhat[1], frame.rhat[2]),
-            pericentric, invalid, k_eff,
-        )
-        match_o, ang_o = _decode_packed_angles(packed)
-        new_carry = _carry_from_channels(
-            cur_key, cur_sv, frame.rhat[0], frame.rhat[1], frame.rhat[2],
-            ang_o, match_o, id_dt,
-        )
-        ev_ids, ev_angles, ev_slots = _finish_events(
-            count, (evk >> 1).astype(id_dt), evsv & 0x00FFFFFF,
-            evang, K, invalid, id_dt, angle_dtype,
-            id_order=events_id_order,
+        (ev_ids, ev_slot, ev_ang), count = compact_rows(
+            apsis, (snap.ids, carry.slot, apsis_angle), min(K, p))
+        ev_ok = jax.lax.broadcasted_iota(
+            jnp.int32, ev_ids.shape, 1) < count[:, None]
+        new_carry = SortedCarry(
+            ids=snap.ids,
+            slot=cur_sv & 0x00FFFFFF,
+            vrb=(cur_sv >> 24).astype(jnp.uint8) | (match << 2),
+            rhat=frame.rhat,
+            angles=angle_new,
         )
         return new_carry, CompactEvents(
             count=count,
-            ids=ev_ids,
-            angles=ev_angles,
+            ids=jnp.where(ev_ok, ev_ids, jnp.asarray(invalid, id_dt)),
+            angles=ev_ang,
             bulk_vel=frame.bulk_vel,
-            slots=ev_slots,
+            slots=jnp.where(ev_ok, ev_slot, -1),
         )
 
     return step

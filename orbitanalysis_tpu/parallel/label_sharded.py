@@ -26,16 +26,13 @@ except ImportError:  # pragma: no cover
     _SHARD_MAP_KW = {"check_rep": False}
 
 from orbitanalysis_tpu.ops.label_step import (
-    _TWOLEVEL_MIN_H,
     LabelCarry,
+    _segment_moments_gather,
     _segment_moments_matmul,
     _segment_moments_twolevel,
     make_label_orbit_step,
 )
-from orbitanalysis_tpu.ops.pallas_config import (
-    devices_interpret,
-    interpret_hint,
-)
+from orbitanalysis_tpu.policy import label_frames
 
 __all__ = ["make_sharded_label_step", "shard_label_tree"]
 
@@ -79,7 +76,6 @@ def make_sharded_label_step(
     if "particles" not in mesh.axis_names:
         raise ValueError("mesh needs a 'particles' axis")
     n_shards = int(mesh.shape["particles"])
-    interp = devices_interpret(mesh.devices.flat)
 
     local = make_label_orbit_step(
         event_capacity, mode=mode, box_size=box_size, n_halos=n_halos,
@@ -87,35 +83,26 @@ def make_sharded_label_step(
     )
 
     def shard_fn(carry, pos, vel, label, centers, mass, drag):
-        # global mass-weighted bulk moments: local one-hot MXU pass +
-        # one tiny psum over the particle axis
+        # global mass-weighted bulk moments: local pass + one tiny psum
+        # over the particle axis; 'auto' resolves per halo count, like
+        # the single-chip step
         valid = label >= 0
         lab_m = jnp.where(valid, label, -1)
-        # 'auto' resolves per halo count, like the single-chip step
-        # (ops/label_step.py): the two-level hi/lo split above
-        # _TWOLEVEL_MIN_H, the f32 HIGHEST one-hot matmul below it
-        impl = frames
-        if impl == "auto":
-            impl = ("twolevel" if n_halos >= _TWOLEVEL_MIN_H
-                    else "matmul")
-        if impl == "pallas":
-            from orbitanalysis_tpu.ops.pallas_frames import (
-                segment_moments,
+        impl = label_frames(n_halos) if frames == "auto" else frames
+        w = (jnp.ones(label.shape, jnp.float32) if mass is None
+             else mass)
+        w = jnp.where(valid, w, 0.0)
+        if impl == "gather":
+            mom = _segment_moments_gather(
+                jnp.concatenate([vel * w[None], w[None, :]], axis=0),
+                lab_m, n_halos,
             )
-
-            mom = segment_moments(lab_m, vel, mass, n_halos=n_halos)
         elif impl == "twolevel":
-            w = (jnp.ones(label.shape, jnp.float32) if mass is None
-                 else mass)
-            w = jnp.where(valid, w, 0.0)
             mom = _segment_moments_twolevel(
                 jnp.concatenate([vel * w[None], w[None, :]], axis=0),
                 lab_m, n_halos,
             )
         else:
-            w = (jnp.ones(label.shape, jnp.float32) if mass is None
-                 else mass)
-            w = jnp.where(valid, w, 0.0)
             mom = _segment_moments_matmul(
                 jnp.stack([vel[0] * w, vel[1] * w, vel[2] * w, w],
                           axis=-1),
@@ -157,22 +144,21 @@ def make_sharded_label_step(
         ev_spec = LabelEvents(
             count=pspec, index=pspec, angle=pspec, bulk_vel=P()
         )
-        with interpret_hint(interp):
-            f = shard_map(
-                shard_fn,
-                mesh=mesh,
-                in_specs=(
-                    carry_spec,
-                    P(None, "particles"),
-                    P(None, "particles"),
-                    pspec,
-                    P(),  # centers replicated
-                    pspec,
-                    P(),
-                ),
-                out_specs=(carry_spec, ev_spec),
-                **_SHARD_MAP_KW,
-            )
-            return f(carry, pos, vel, label, centers, mass, drag)
+        f = shard_map(
+            shard_fn,
+            mesh=mesh,
+            in_specs=(
+                carry_spec,
+                P(None, "particles"),
+                P(None, "particles"),
+                pspec,
+                P(),  # centers replicated
+                pspec,
+                P(),
+            ),
+            out_specs=(carry_spec, ev_spec),
+            **_SHARD_MAP_KW,
+        )
+        return f(carry, pos, vel, label, centers, mass, drag)
 
     return step, n_shards

@@ -1,17 +1,13 @@
-"""Halo-sharded sorted-carry step via ``shard_map``.
+"""Halo-sharded sorted-carry and aligned steps via ``shard_map``.
 
-The Pallas kernels in :mod:`orbitanalysis_tpu.ops.pallas_merge` /
-``pallas_step`` do not auto-partition under jit's SPMD partitioner (a
-``pallas_call`` is opaque to it), so the mesh-parallel sorted step is an
-explicit ``shard_map`` over the halo axis: every halo row is independent
-(the reference parallelized the same axis with its process pool,
-``/root/reference/orbitanalysis/track_orbits.py:189-194``), so each
-device runs the full fused kernel on its row block with **zero
-collectives** — the ICI is only touched by the host's initial sharding
-of the batch.
-
-The particle axis cannot be sharded through the kernels (a bitonic
-merge needs the whole row in one VMEM); shard halos, not particles.
+Every halo row is independent (the reference parallelized the same
+axis with its process pool,
+``/root/reference/orbitanalysis/track_orbits.py:189-194``), so the
+mesh-parallel step is an explicit ``shard_map`` over the halo axis:
+each device runs the whole step on its row block with **zero
+collectives** — the interconnect is only touched by the host's initial
+sharding of the batch.  Rows are whole per device (the per-row sort
+and compaction need the full row); shard halos, not particles.
 """
 
 from __future__ import annotations
@@ -21,16 +17,11 @@ from jax.sharding import Mesh
 
 try:  # moved out of experimental in newer jax
     from jax import shard_map
-    # pallas_call does not carry varying-mesh-axis annotations
     _SHARD_MAP_KW = {"check_vma": False}
 except ImportError:  # pragma: no cover
     from jax.experimental.shard_map import shard_map
     _SHARD_MAP_KW = {"check_rep": False}
 
-from orbitanalysis_tpu.ops.pallas_config import (
-    devices_interpret,
-    interpret_hint,
-)
 from orbitanalysis_tpu.ops.sorted_step import (
     make_aligned_native_step,
     make_sorted_orbit_step,
@@ -40,33 +31,28 @@ from orbitanalysis_tpu.parallel.sharding import tree_sharding_specs
 
 def _shard_step(step, mesh: Mesh):
     """Wrap a per-row step in a halo-axis ``shard_map``: every halo row
-    is independent, so each device runs the full kernel on its row
-    block with zero collectives."""
+    is independent, so each device runs the full step on its row block
+    with zero collectives."""
     if "halos" not in mesh.axis_names:
         raise ValueError("mesh needs a 'halos' axis")
     if "particles" in mesh.axis_names:
         raise ValueError(
-            "the fused kernels need whole rows per device; "
+            "the sorted and aligned steps need whole rows per device; "
             "shard the halo axis only"
         )
-    # Pallas interpret mode keys off the devices that actually execute
-    # the kernels — the mesh's, not the process default backend (the
-    # two differ on a virtual CPU mesh under a TPU-default process).
-    interp = devices_interpret(mesh.devices.flat)
 
     def sharded(carry, batch):
         in_specs = tree_sharding_specs((carry, batch), mesh)
-        with interpret_hint(interp):
-            out_shape = jax.eval_shape(step, carry, batch)
-            out_specs = tree_sharding_specs(out_shape, mesh)
-            f = shard_map(
-                step,
-                mesh=mesh,
-                in_specs=in_specs,
-                out_specs=out_specs,
-                **_SHARD_MAP_KW,
-            )
-            return f(carry, batch)
+        out_shape = jax.eval_shape(step, carry, batch)
+        out_specs = tree_sharding_specs(out_shape, mesh)
+        f = shard_map(
+            step,
+            mesh=mesh,
+            in_specs=in_specs,
+            out_specs=out_specs,
+            **_SHARD_MAP_KW,
+        )
+        return f(carry, batch)
 
     return sharded
 

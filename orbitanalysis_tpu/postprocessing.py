@@ -26,10 +26,9 @@ from __future__ import annotations
 
 import time
 
-import h5py
 import numpy as np
 
-from orbitanalysis_tpu.engine.io_hdf5 import apsis_tag
+from orbitanalysis_tpu.engine.io_hdf5 import apsis_tag, h5file
 
 
 def _match_order(a, b):
@@ -46,7 +45,7 @@ class Apsides:
 
     def __init__(self, filename):
         self.filename = filename
-        with h5py.File(filename, "r") as hf:
+        with h5file(filename, "r") as hf:
             # sort numerically, not lexicographically: %03d group names
             # widen to 4+ digits at snapshot 1000+
             self.snapshot_numbers = np.sort(np.array(
@@ -130,7 +129,7 @@ class Apsides:
         accumulated = [None] * n_req  # lazily-typed per-halo ID accumulators
 
         for s in self.snapshot_numbers[: sind + 1]:
-            with h5py.File(self.filename, "r") as hf:
+            with h5file(self.filename, "r") as hf:
                 g = hf["snapshot_%03d" % s]
                 region_positions = g["region_positions"][:]
                 region_radii = g["region_radii"][:]
@@ -183,7 +182,7 @@ class Apsides:
             )
             halo_offsets = np.cumsum([0] + lens)[:-1]
 
-            with h5py.File(savefile, "a") as hf:
+            with h5file(savefile, "a") as hf:
                 g = hf.create_group("snapshot_%03d" % s)
                 g.create_dataset("particle_IDs", data=ids_unique)
                 g.create_dataset(self._tag + "_counts", data=counts)
@@ -238,7 +237,7 @@ class Apsides:
         ev_id, ev_k, ev_s = [], [], []
         orbtype = None
         for si, s in enumerate(snaps):
-            with h5py.File(self.filename, "r") as hf:
+            with h5file(self.filename, "r") as hf:
                 g = hf["snapshot_%03d" % s]
                 meta = dict(
                     s=s,
@@ -343,7 +342,7 @@ class Apsides:
             lens = np.bincount(k_u[in_req], minlength=n_req)[req_inds]
             halo_offsets = np.cumsum([0] + list(lens))[:-1]
 
-            with h5py.File(savefile, "a") as hf:
+            with h5file(savefile, "a") as hf:
                 g = hf.create_group("snapshot_%03d" % meta["s"])
                 g.create_dataset("particle_IDs", data=ids_unique)
                 g.create_dataset(self._tag + "_counts", data=counts_sel)
@@ -377,7 +376,7 @@ class Apsides:
     ):
         """Retroactively attach each particle's *final* orbit count to every
         earlier snapshot's catalog (``postprocessing.py:176-240``)."""
-        with h5py.File(collated_file, "r+") as hf:
+        with h5file(collated_file, "r+") as hf:
             nums_all = np.sort(np.array(
                 [int(k.split("_")[-1]) for k in hf.keys()]
             ))
@@ -472,7 +471,7 @@ class OrbitDecomposition:
         sind = int(np.argwhere(snaps == snapshot_number).flatten()[0])
 
         acc = []
-        with h5py.File(self.filename, "r") as hf:
+        with h5file(self.filename, "r") as hf:
             for s in snaps[: sind + 1]:
                 g = hf["snapshot_%03d" % s]
                 hids_final = (

@@ -70,6 +70,62 @@ def myin1d(a, b, kind=None):
     return sorter[np.searchsorted(a, b, sorter=sorter)]
 
 
+def acos_f32(x):
+    """float32 arccos to ~2 ulp as a fixed polynomial, so every engine
+    (and every backend) computes bit-identical apsis angles.
+
+    Cephes ``asinf`` minimax polynomial with the standard range split:
+    ``|x| <= 0.5`` via ``pi/2 - asin(x)``, else
+    ``2*asin(sqrt((1-|x|)/2))`` reflected for negative ``x``.
+    """
+    def asin_poly(v, w):
+        p = jnp.float32(4.2163199048e-2)
+        p = p * w + jnp.float32(2.4181311049e-2)
+        p = p * w + jnp.float32(4.5470025998e-2)
+        p = p * w + jnp.float32(7.4953002686e-2)
+        p = p * w + jnp.float32(1.6666752422e-1)
+        return p * w * v + v
+
+    pi = jnp.float32(np.pi)
+    ax = jnp.abs(x)
+    t = jnp.float32(0.5) * (jnp.float32(1.0) - ax)
+    sq = jnp.sqrt(t)
+    big_pos = jnp.float32(2.0) * asin_poly(sq, t)
+    acos_big = jnp.where(x < 0, pi - big_pos, big_pos)
+    acos_small = jnp.float32(np.pi / 2) - asin_poly(x, x * x)
+    return jnp.where(ax > 0.5, acos_big, acos_small)
+
+
+def f16_bits_rne(x):
+    """IEEE f32 -> f16 bit pattern (round-to-nearest-even) for finite
+    ``x >= 0``, as uint32, in integer arithmetic.  Matches
+    ``bitcast(x.astype(float16), uint16)`` exactly for every finite
+    non-negative f32, including f16 subnormals; values above the f16
+    range clamp to 0x7BFF (65504.0) instead of inf so the positional
+    payload's 15-bit angle field never aliases the position bits."""
+    import jax
+
+    u = jax.lax.bitcast_convert_type(x, jnp.int32)
+    e = u >> 23  # biased f32 exponent (sign bit 0)
+    # normal f16 (e >= 113): fold RNE into one add — carries propagate
+    # from the mantissa into the exponent exactly as IEEE requires
+    rn = u + 0x0FFF + ((u >> 13) & 1)
+    h_norm = (rn - 0x38000000) >> 13
+    h_norm = jnp.minimum(h_norm, 0x7BFF)
+    # subnormal f16 (e < 113, i.e. x < 2**-14): the f16 subnormal
+    # lattice is m * 2**-24, m in [0, 1024), so the bit pattern is
+    # RNE(x * 2**24) — an exact power-of-two scale plus round-half-even.
+    # x = 2**-14 scales to exactly 1024 = 0x400, the first normal
+    # encoding, so the lattice is seamless at the boundary.  Lanes with
+    # e >= 113 (including inf/NaN) are zeroed BEFORE the scale so every
+    # f32 -> i32 conversion is in range (their result is discarded).
+    h_sub = jnp.round(
+        jnp.where(e >= 113, jnp.float32(0.0), x) * jnp.float32(16777216.0)
+    ).astype(jnp.int32)
+    h = jnp.where(e >= 113, h_norm, h_sub)
+    return h.astype(jnp.uint32)
+
+
 def oct_encode(rhat):
     """Octahedral-map unit-vector compression: ``[3, ...]`` f32 ->
     ``[...]`` uint32 (16 bits per octahedral coordinate; measured

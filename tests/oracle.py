@@ -3,7 +3,7 @@
 A deliberately simple, obviously-correct re-derivation of the reference
 algorithm (from SURVEY.md §2/§3, *not* a copy of the reference code): a
 per-halo dictionary of particle state, updated one snapshot at a time.
-Used as the golden model for the TPU engine's unit/integration tests.
+Used as the golden model for the device engines' unit/integration tests.
 
 Semantics mirrored:
 - periodic recenter to [-L/2, L/2]

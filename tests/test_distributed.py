@@ -146,7 +146,7 @@ def test_tracker_with_mesh(rng, tmp_path):
 
 def test_tracker_with_mesh_sorted_join(rng, tmp_path):
     """track_orbits(mesh=..., join_impl='sorted') — the halo-sharded
-    fused-kernel path — matches the unsharded general engine's savefile."""
+    sorted engine — matches the unsharded general engine's savefile."""
     import h5py
 
     from orbitanalysis_tpu import track_orbits
@@ -172,8 +172,7 @@ def test_tracker_with_mesh_sorted_join(rng, tmp_path):
         for k in a:
             for ds in a[k]:
                 if ds == "angles":
-                    # fused kernel computes arccos with an in-kernel
-                    # polynomial; compare at f16-store resolution
+                    # compare at f16-store resolution
                     assert np.allclose(
                         a[k][ds][:].astype(np.float32),
                         b[k][ds][:].astype(np.float32),
@@ -243,8 +242,8 @@ def test_sharded_nbody_forces_and_sim(rng):
 
 @pytest.mark.slow
 def test_sharded_sorted_step_equals_single_device(rng):
-    """Halo-sharded sorted/fused step (shard_map around the Pallas
-    kernels) must reproduce the unsharded step exactly."""
+    """Halo-sharded sorted step (shard_map over the halo axis) must
+    reproduce the unsharded step exactly."""
     from orbitanalysis_tpu.ops.sorted_step import (
         init_sorted_carry,
         make_sorted_orbit_step,
@@ -255,8 +254,8 @@ def test_sharded_sorted_step_equals_single_device(rng):
 
     n_halos, cap, K = 8, 128, 128
     mesh = make_mesh({"halos": 8})
-    step = jax.jit(make_sorted_orbit_step(K, fused=True))
-    sstep = jax.jit(make_sharded_sorted_step(mesh, K, fused=True))
+    step = jax.jit(make_sorted_orbit_step(K))
+    sstep = jax.jit(make_sharded_sorted_step(mesh, K))
 
     carry_a = init_sorted_carry(n_halos, cap)
     carry_b = shard_tree(init_sorted_carry(n_halos, cap), mesh)

@@ -211,8 +211,7 @@ def test_event_capacity_growth_mid_run(tmp_path):
 
 def test_grow_converts_sorted_to_general(tmp_path, growing_setup):
     """Capacity overflow under grow_impl='general' hands the sorted
-    carry to the general engine mid-run with identical output (the
-    auto-join growth policy, minus the TPU-only auto selection)."""
+    carry to the general engine mid-run with identical output."""
     from orbitanalysis_tpu.utils.metrics import Metrics
 
     box, snaps, regions, loader, snap_nums, branches = growing_setup
@@ -560,11 +559,11 @@ def test_onthefly_with_missing_progenitors(tmp_path, churn_setup):
 
 def _assert_files_equal(pa, pb):
     """Dataset-for-dataset equality; f16 angle stores may differ by one
-    f16 ulp (~0.003% of events) because the fused kernels' in-kernel
-    arccos is a 2-ulp-f32 polynomial (Mosaic has no acos primitive), and
-    bulk velocities by ~1 f32 ulp when an engine stages rows in a
-    different order (the masked mass-weighted mean reduces in row
-    order)."""
+    f16 ulp (~0.003% of events) because the aligned engine's arccos is
+    a fixed 2-ulp-f32 polynomial (``utils.numerics.acos_f32``) where the
+    general engine calls ``jnp.arccos``, and bulk velocities by ~1 f32
+    ulp when an engine stages rows in a different order (the masked
+    mass-weighted mean reduces in row order)."""
     with h5py.File(pa) as a, h5py.File(pb) as b:
         assert sorted(a.keys()) == sorted(b.keys())
         for k in a:
@@ -586,7 +585,7 @@ def _assert_files_equal(pa, pb):
 
 @pytest.mark.slow
 def test_sorted_join_tracker_identical(tmp_path, churn_setup):
-    """join_impl='sorted' (fused Pallas kernel, ID-sorted host packing)
+    """join_impl='sorted' (ID-sorted host packing, sorted carry)
     must write a savefile identical to the general engine's —
     dataset-for-dataset, including event order."""
     box, snaps, regions, loader, snap_nums, branches = churn_setup
@@ -812,7 +811,7 @@ def test_onthefly_both_mode(tmp_path, churn_setup):
                 assert np.array_equal(va, vb, equal_nan=True), k
 
 
-@pytest.mark.slow  # 131072-wide interpret-mode pair-compaction rows
+@pytest.mark.slow  # 131072-wide rows
 def test_event_capacity_growth_wide_rows(tmp_path):
     """Same lossless overflow recovery as
     test_event_capacity_growth_mid_run, but on rows past

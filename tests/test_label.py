@@ -1,7 +1,7 @@
 """Label-native detector (ops/label_step.py): the device-resident
 stable-alignment path — the pool IS the layout, churn is a label change.
 
-Tiers: unit tests for the one-hot MXU helpers and the region assigner,
+Tiers: unit tests for the frame-row and moment helpers and the region assigner,
 then event-stream parity against the aligned engine on a churning pool
 (the round-2 review's acceptance: device-resident churn with event
 streams equal to the staged engines, reference semantics
@@ -96,42 +96,23 @@ def test_take_rows_soa_exact(rng):
             np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-6)
 
 
-def test_pallas_frames_bf16x3_exact(rng):
-    """The [1, N]-blocked VMEM-one-hot kernels (the compiled-TPU
-    default for small H): frame rows bit-exact vs gather (one nonzero
-    product per exact bf16x3 split piece), moments within f32
-    accumulation-order tolerance of the direct dot."""
-    from orbitanalysis_tpu.ops.label_step import _segment_moments_soa
-    from orbitanalysis_tpu.ops.pallas_frames import (
-        frame_rows_bf16x3,
-        segment_moments_bf16x3,
-    )
+@pytest.mark.parametrize("h", [7, 300])
+def test_take_rows_gather_exact(rng, h):
+    """The plain gather form of the frame rows: bit-exact vs the
+    select reference (and a NumPy gather) at both halo-count regimes,
+    -1 labels giving zero rows."""
+    from orbitanalysis_tpu.ops.label_step import take_rows_gather
 
-    h, n = 7, 1024
+    n = 1024
     table = (rng.normal(size=(h, 6))
              * np.exp2(rng.integers(-40, 40, size=(h, 6)))
              ).astype(np.float32)
     idx = rng.integers(-1, h, size=n).astype(np.int32)
     want = np.where(idx[:, None] >= 0, table[np.maximum(idx, 0)], 0.0).T
-    got = np.asarray(frame_rows_bf16x3(
-        jnp.asarray(table), jnp.asarray(idx)))
+    got = np.asarray(take_rows_gather(jnp.asarray(table), jnp.asarray(idx)))
     np.testing.assert_array_equal(got, want.astype(np.float32))
-    # 2D-shaped labels flatten to the same answer
-    got2 = np.asarray(frame_rows_bf16x3(
-        jnp.asarray(table), jnp.asarray(idx).reshape(4, 256)))
-    np.testing.assert_array_equal(got2, got)
-
-    vel = rng.normal(size=(3, n)).astype(np.float32)
-    mass = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
-    valid = idx >= 0
-    wm = np.where(valid, mass, 0.0)
-    ref = np.asarray(_segment_moments_soa(
-        jnp.asarray(np.concatenate([vel * wm[None], wm[None]], axis=0)),
-        jnp.asarray(idx), h))
-    got_m = np.asarray(segment_moments_bf16x3(
-        jnp.asarray(idx), jnp.asarray(vel), jnp.asarray(mass),
-        n_halos=h))
-    np.testing.assert_allclose(got_m, ref, rtol=2e-6, atol=2e-6)
+    sel = np.asarray(take_rows_select(jnp.asarray(table), jnp.asarray(idx)))
+    np.testing.assert_array_equal(got, sel.T)
 
 
 def test_assign_regions_matches_numpy(rng):
@@ -212,8 +193,8 @@ def test_take_rows_twolevel_exact(rng):
 
 @pytest.mark.parametrize(
     "frames",
-    ["select", "matmul", "matmul_bf16x3", "soa", "soa_bf16x3",
-     "twolevel", "pallas", "pallas2", "fused", "split"])
+    ["select", "gather", "matmul", "matmul_bf16x3", "soa", "soa_bf16x3",
+     "twolevel"])
 def test_label_scan_matches_aligned_engine(rng, frames):
     """Event-stream parity: the label detector over the pool must emit
     exactly the aligned engine's events ((halo, id, f16 angle) sets per
@@ -288,8 +269,7 @@ def test_label_scan_matches_aligned_engine(rng, frames):
 
 
 def test_label_bulk_estimation_close(rng):
-    """In-step mass-weighted bulk estimation (one-hot MXU moments)
-    agrees with a NumPy segment mean to f32 reduction tolerance."""
+    """In-step mass-weighted bulk estimation agrees with a NumPy segment mean to f32 reduction tolerance."""
     box = 80.0
     pos, vel, label, cen_seq = _churn_pool(rng)
     N = label.shape[1]
@@ -334,7 +314,7 @@ def test_label_mode_both_directions(rng):
     np.testing.assert_array_equal(cp, [0, 0, N])
 
 
-@pytest.mark.slow  # 8-device shard_map x interpret-mode kernels: ~150 s
+@pytest.mark.slow  # 8-device shard_map: ~150 s
 def test_sharded_label_step_matches_single():
     """Particle-sharded label step (shard_map over 'particles', psum'd
     bulk moments) equals the single-device step: carries exact on the
@@ -477,12 +457,12 @@ def test_aligned_rhat_packed_counts_exact(rng):
 
 
 def test_f16_bits_rne(rng):
-    """The fused kernel's integer f32->f16 encoder (Mosaic has no
-    native f16) must match ``astype(float16)`` bit-for-bit for all
-    finite non-negative inputs — normals, f16 subnormals, exact
-    round-to-even halves — with out-of-range values clamping to the
-    max finite f16 instead of inf."""
-    from orbitanalysis_tpu.ops.pallas_label import f16_bits_rne
+    """The integer f32->f16 encoder of the payload words must match
+    ``astype(float16)`` bit-for-bit for all finite non-negative inputs
+    — normals, f16 subnormals, exact round-to-even halves — with
+    out-of-range values clamping to the max finite f16 instead of
+    inf."""
+    from orbitanalysis_tpu.utils.numerics import f16_bits_rne
 
     xs = np.concatenate([
         np.float32([0.0, 5.96e-8, 6e-8, 6.097e-5, 6.104e-5,
@@ -500,59 +480,118 @@ def test_f16_bits_rne(rng):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("kernel", ["fused", "split"])
-def test_fused_label_step_bit_parity(rng, kernel):
-    """The fused single-pass kernel (and the split full-vreg detect
-    kernel) must reproduce the unfused XLA path's carries and events
-    BIT-exactly (same geometry expressions, gather-exact one-hot,
-    IEEE-exact f16 payload encoding)."""
-    H, R, W, S = 7, 4, 512, 6
+def _random_pool(rng, h, R=4, W=512, S=6):
     N = R * W
     pos = rng.uniform(0, 100, (S, 3, N)).astype(np.float32)
     vel = rng.normal(size=(S, 3, N)).astype(np.float32)
-    lab = rng.integers(-1, H, (S, N)).astype(np.int32)
-    cen = rng.uniform(20, 80, (S, H, 3)).astype(np.float32)
+    lab = rng.integers(-1, h, (S, N)).astype(np.int32)
+    cen = rng.uniform(20, 80, (S, h, 3)).astype(np.float32)
     for s in range(1, S):
         keep = rng.random(N) < 0.9
         lab[s] = np.where(keep, lab[s - 1], lab[s])
+    return pos, vel, lab, cen
 
-    outs = {}
-    for impl in ("matmul", kernel):
-        step = make_label_orbit_step(
-            128, box_size=100.0, row_width=W, frames=impl)
-        c = init_label_carry(N, row_width=W)
-        evs = []
-        for s in range(S):
-            c, ev = jax.jit(step)(c, (
-                pos[s].reshape(3, R, W), vel[s].reshape(3, R, W),
-                lab[s].reshape(R, W), cen[s], None, None,
-                jnp.float32(0.01)))
-            evs.append(jax.tree.map(np.asarray, ev))
-        outs[impl] = (jax.tree.map(np.asarray, c), evs)
 
-    ca, cb = outs["matmul"][0], outs[kernel][0]
+def _run_label_steps(frames, pos, vel, lab, cen, R, W, bulk=None,
+                     mass=None):
+    step = jax.jit(make_label_orbit_step(
+        128, box_size=100.0, row_width=W, frames=frames))
+    c = init_label_carry(R * W, row_width=W)
+    evs = []
+    for s in range(lab.shape[0]):
+        c, ev = step(c, (
+            pos[s].reshape(3, R, W), vel[s].reshape(3, R, W),
+            lab[s].reshape(R, W), cen[s],
+            None if bulk is None else bulk[s],
+            None if mass is None else mass.reshape(R, W),
+            jnp.float32(0.01)))
+        evs.append(jax.tree.map(np.asarray, ev))
+    return jax.tree.map(np.asarray, c), evs
+
+
+def _assert_label_runs_equal(a, b):
+    ca, cb = a[0], b[0]
     np.testing.assert_array_equal(ca.lab_sv, cb.lab_sv)
     np.testing.assert_array_equal(ca.packed, cb.packed)
     np.testing.assert_array_equal(ca.rhat, cb.rhat)
-    for s in range(S):
-        ea, eb = outs["matmul"][1][s], outs[kernel][1][s]
+    for ea, eb in zip(a[1], b[1]):
         np.testing.assert_array_equal(ea.count, eb.count)
         np.testing.assert_array_equal(ea.index, eb.index)
         np.testing.assert_array_equal(ea.angle, eb.angle)
-        np.testing.assert_allclose(ea.bulk_vel, eb.bulk_vel, atol=2e-5)
 
 
-def test_fused_label_rhat_packed_counts_exact(rng):
-    """The fused kernel's in-kernel octahedral pack/unpack: counts
-    exact, angles within the quantization tolerance (same contract as
-    the XLA rhat_packed path)."""
+@pytest.mark.parametrize("h", [7, 300])
+@pytest.mark.parametrize("frames", ["gather", "matmul", "twolevel"])
+def test_label_frames_step_bit_parity(rng, frames, h):
+    """Every frames form reproduces the 'select' reference's carries and
+    events BIT-exactly (row selection is exact in all of them; with the
+    bulk velocities given, nothing else differs) at both halo-count
+    regimes."""
+    R, W = 4, 512
+    pos, vel, lab, cen = _random_pool(rng, h, R, W)
+    bulk = rng.normal(scale=0.1, size=(lab.shape[0], h, 3)).astype(
+        np.float32)
+    ref = _run_label_steps("select", pos, vel, lab, cen, R, W, bulk=bulk)
+    got = _run_label_steps(frames, pos, vel, lab, cen, R, W, bulk=bulk)
+    _assert_label_runs_equal(ref, got)
+
+
+@pytest.mark.parametrize("with_mass", [False, True])
+@pytest.mark.parametrize("h", [7, 300])
+@pytest.mark.parametrize("frames", ["gather", "twolevel"])
+def test_label_frames_moments(rng, frames, h, with_mass):
+    """The in-step bulk velocities of each moments form agree with a
+    float64 NumPy segment mean (mass-weighted or plain) to f32
+    summation tolerance, at both halo-count regimes."""
+    R, W = 2, 512
+    N = R * W
+    pos, vel, lab, cen = _random_pool(rng, h, R, W, S=1)
+    mass = (rng.uniform(0.5, 2.0, N).astype(np.float32) if with_mass
+            else None)
+    _, evs = _run_label_steps(frames, pos, vel, lab, cen, R, W, mass=mass)
+    bulk = evs[0].bulk_vel
+    w = np.ones(N) if mass is None else mass.astype(np.float64)
+    for hh in range(h):
+        sel = lab[0] == hh
+        if not sel.any():
+            continue
+        want = ((w[sel][:, None] * vel[0][:, sel].T.astype(np.float64))
+                .sum(0) / w[sel].sum())
+        np.testing.assert_allclose(bulk[hh], want, rtol=1e-5, atol=1e-5)
+
+
+def test_label_dense_burst_parity(rng):
+    """A dense event burst (every particle of halo 0 flips inward ->
+    outward at once) must come out of the plain frames form exactly as
+    from the select reference: full compaction rows, exact counts."""
+    H, R, W, S = 5, 4, 1024, 6
+    N = R * W
+    pos, vel, lab, cen = _random_pool(rng, H, R, W, S)
+    u = rng.normal(size=(N, 3)).astype(np.float32)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    lab[2] = lab[3] = 0
+    pos[2] = (cen[2, 0] + 3.0 * u).T
+    vel[2] = (-1.0 * u).T
+    pos[3] = (cen[3, 0] + 2.5 * u).T
+    vel[3] = (1.0 * u).T
+    bulk = np.zeros((S, H, 3), np.float32)
+    ref = _run_label_steps("select", pos, vel, lab, cen, R, W, bulk=bulk)
+    got = _run_label_steps("gather", pos, vel, lab, cen, R, W, bulk=bulk)
+    _assert_label_runs_equal(ref, got)
+    assert max(int(e.count.max()) for e in got[1]) > 128, (
+        "no dense burst: event counts never exceeded the capacity")
+
+
+def test_gather_label_rhat_packed_counts_exact(rng):
+    """Octahedral rhat packing on the plain gather frames form: counts
+    exact, angles within the quantization tolerance."""
     box = 80.0
     pos, vel, label, cen_seq = _churn_pool(rng)
     N = label.shape[1]
     S = label.shape[0]
     kw = dict(event_capacity=128, box_size=box, row_width=256,
               bulk_vel_seq=np.zeros((S, 3, 3), np.float32),
-              frames="fused")
+              frames="gather")
     _, ev_f = scan_label_events(
         init_label_carry(N, row_width=256), jnp.asarray(pos),
         jnp.asarray(vel), jnp.asarray(label), jnp.asarray(cen_seq),
@@ -575,58 +614,3 @@ def test_fused_label_rhat_packed_counts_exact(rng):
                 ev_f.angle[s, r, :k][of], ev_p.angle[s, r, :k][op],
                 atol=5e-3,
             )
-
-
-def test_label_detect_compact_fused_parity(rng):
-    """The round-5 detect+compact kernel (event compaction inside the
-    detect pass, lane-major tiles) must reproduce the XLA path
-    bit-exactly at a shape where its blocked fast path applies
-    (row_width 1024: 8 blocks/row, k128 = 128 <= 8*BLOCK_CAP), and
-    the in-kernel overflow channel must reroute dense rows through
-    the exact full-range network (lax.cond fallback)."""
-    H, R, W, S = 5, 4, 1024, 6
-    N = R * W
-    pos = rng.uniform(0, 100, (S, 3, N)).astype(np.float32)
-    vel = rng.normal(size=(S, 3, N)).astype(np.float32)
-    lab = rng.integers(-1, H, (S, N)).astype(np.int32)
-    cen = rng.uniform(20, 80, (S, H, 3)).astype(np.float32)
-    for s in range(1, S):
-        keep = rng.random(N) < 0.9
-        lab[s] = np.where(keep, lab[s - 1], lab[s])
-    # snapshot 3: force a dense event burst (every particle of halo 0
-    # flips inward->outward at once) so per-128-block counts blow past
-    # BLOCK_CAP and the overflow cond must fire
-    u = rng.normal(size=(N, 3)).astype(np.float32)
-    u /= np.linalg.norm(u, axis=1, keepdims=True)
-    lab[2] = lab[3] = 0
-    pos[2] = (cen[2, 0] + 3.0 * u).T
-    vel[2] = (-1.0 * u).T
-    pos[3] = (cen[3, 0] + 2.5 * u).T
-    vel[3] = (1.0 * u).T
-
-    outs = {}
-    for impl in ("matmul", "split"):
-        step = make_label_orbit_step(
-            128, box_size=100.0, row_width=W, frames=impl)
-        c = init_label_carry(N, row_width=W)
-        evs = []
-        for s in range(S):
-            c, ev = jax.jit(step)(c, (
-                pos[s].reshape(3, R, W), vel[s].reshape(3, R, W),
-                lab[s].reshape(R, W), cen[s], None, None,
-                jnp.float32(0.01)))
-            evs.append(jax.tree.map(np.asarray, ev))
-        outs[impl] = (jax.tree.map(np.asarray, c), evs)
-
-    ca, cb = outs["matmul"][0], outs["split"][0]
-    np.testing.assert_array_equal(ca.lab_sv, cb.lab_sv)
-    np.testing.assert_array_equal(ca.packed, cb.packed)
-    np.testing.assert_array_equal(ca.rhat, cb.rhat)
-    burst = False
-    for s in range(S):
-        ea, eb = outs["matmul"][1][s], outs["split"][1][s]
-        np.testing.assert_array_equal(ea.count, eb.count)
-        np.testing.assert_array_equal(ea.index, eb.index)
-        np.testing.assert_array_equal(ea.angle, eb.angle)
-        burst = burst or int(ea.count.max()) > 16
-    assert burst, "no dense burst: the overflow fallback was not hit"

@@ -1,4 +1,4 @@
-"""Model tier: the native TPU leapfrog/KDK integrator with fused orbit
+"""Model tier: the native on-device leapfrog/KDK integrator with fused orbit
 detection (BASELINE.json configs[3]; SURVEY.md §7 step 8)."""
 
 import jax.numpy as jnp

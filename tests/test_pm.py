@@ -17,7 +17,7 @@ from orbitanalysis_tpu.models.pm import (
 
 
 def test_cic_rows_forms_match_scalar_forms(rng):
-    """The TPU-fast row deposit/interp must agree with the classic
+    """The corner-table row deposit/interp must agree with the classic
     8-scatter/24-gather forms everywhere, including cell boundaries and
     the periodic wrap seam."""
     n, grid, box = 4096, 16, 10.0
@@ -417,3 +417,63 @@ def test_rows_interpolation_empty_particles():
     mass = jnp.zeros((0,), jnp.float32)
     f = np.asarray(pm_forces(pos, mass, grid, box, assignment="rows"))
     assert f.shape == (0, 3)
+
+
+def _bincount_cic(pos, mass, grid, box):
+    """float64 CIC deposit by np.bincount (an independent reference)."""
+    h = box / grid
+    x = pos.astype(np.float64) / h - 0.5
+    i0 = np.floor(x)
+    f = x - i0
+    i0 = i0.astype(np.int64)
+    rho = np.zeros(grid ** 3)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                w = ((f[:, 0] if dx else 1 - f[:, 0])
+                     * (f[:, 1] if dy else 1 - f[:, 1])
+                     * (f[:, 2] if dz else 1 - f[:, 2]))
+                idx = ((((i0[:, 0] + dx) % grid) * grid
+                        + (i0[:, 1] + dy) % grid) * grid
+                       + (i0[:, 2] + dz) % grid)
+                rho += np.bincount(idx, weights=w * mass,
+                                   minlength=grid ** 3)
+    return rho.reshape(grid, grid, grid)
+
+
+@pytest.mark.parametrize("grid", [8, 16, 33])
+def test_cic_deposit_matches_bincount(rng, grid):
+    """The scatter-add deposit equals a float64 np.bincount CIC, with a
+    third of the particles within half a cell of the box faces (their
+    clouds straddle the periodic wrap seam)."""
+    box, n = 40.0, 3000
+    pos = rng.uniform(0, box, size=(n, 3))
+    seam = rng.random(n) < 0.33
+    h = box / grid
+    pos[seam] = np.where(
+        rng.random((seam.sum(), 3)) < 0.5,
+        rng.uniform(0, 0.5 * h, (seam.sum(), 3)),
+        rng.uniform(box - 0.5 * h, box, (seam.sum(), 3)),
+    )
+    pos = np.mod(pos, box).astype(np.float32)
+    mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    got = np.asarray(cic_deposit(jnp.asarray(pos), jnp.asarray(mass),
+                                 grid, box))
+    want = _bincount_cic(pos, mass.astype(np.float64), grid, box)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.sum(), mass.astype(np.float64).sum(),
+                               rtol=1e-5)
+
+
+def test_gradient_drops_nyquist_planes():
+    """The spectral gradient is zero on the Nyquist planes (even grids)
+    and equal to 2*pi*freq elsewhere."""
+    from orbitanalysis_tpu.models.pm import gradient_wavenumbers
+
+    kx, ky, kz = gradient_wavenumbers(8)
+    assert kx.shape == (8, 1, 1) and kz.shape == (1, 1, 5)
+    assert kx[4, 0, 0] == 0 and ky[0, 4, 0] == 0 and kz[0, 0, 4] == 0
+    np.testing.assert_allclose(kx[1, 0, 0], 2 * np.pi / 8)
+    np.testing.assert_allclose(kx[7, 0, 0], -2 * np.pi / 8)
+    kx9, _, kz9 = gradient_wavenumbers(9)   # odd grids have no Nyquist
+    assert (kx9 != 0).sum() == 8 and (kz9 != 0).sum() == 4

@@ -15,8 +15,8 @@ import h5py
 import numpy as np
 import pytest
 
-from orbitanalysis_tpu import track_orbits as track_orbits_tpu
-from orbitanalysis_tpu import Apsides as ApsidesTPU
+from orbitanalysis_tpu import track_orbits as track_orbits_pkg
+from orbitanalysis_tpu import Apsides as ApsidesPkg
 from orbitanalysis_tpu.models.synthetic import churn_snapshots
 
 from helpers import make_callbacks
@@ -79,17 +79,17 @@ def both_runs(tmp_path_factory, reference_pkg, data):
     regions3, loader, snap_nums, branches = data
     tmp = tmp_path_factory.mktemp("refpar")
     ref_save = str(tmp / "ref.h5")
-    tpu_save = str(tmp / "tpu.h5")
+    pkg_save = str(tmp / "pkg.h5")
     track_ref(snap_nums, branches, regions3, loader, ref_save,
               mode="pericentric", npool=None, verbose=False)
-    track_orbits_tpu(snap_nums, branches, regions3, loader, tpu_save,
+    track_orbits_pkg(snap_nums, branches, regions3, loader, pkg_save,
                      mode="pericentric", verbose=False)
-    return ref_save, tpu_save, str(tmp), Apsides_ref
+    return ref_save, pkg_save, str(tmp), Apsides_ref
 
 
 def test_savefile_schema_and_ids_match(both_runs):
-    ref_save, tpu_save, _, _ = both_runs
-    with h5py.File(ref_save) as a, h5py.File(tpu_save) as b:
+    ref_save, pkg_save, _, _ = both_runs
+    with h5py.File(ref_save) as a, h5py.File(pkg_save) as b:
         total_events = sum(
             len(a[k]["pericenter_IDs"]) for k in a if k.startswith("snap")
         )
@@ -118,16 +118,16 @@ def test_savefile_schema_and_ids_match(both_runs):
 
 
 def test_collation_matches_reference(both_runs):
-    ref_save, tpu_save, tmp, Apsides_ref = both_runs
+    ref_save, pkg_save, tmp, Apsides_ref = both_runs
     ref_coll = tmp + "/ref_coll.h5"
-    tpu_coll = tmp + "/tpu_coll.h5"
+    pkg_coll = tmp + "/pkg_coll.h5"
     Apsides_ref(ref_save).collate_apsides(
         savefile=ref_coll, verbose=False
     )
-    ApsidesTPU(tpu_save).collate_apsides(
-        savefile=tpu_coll, verbose=False
+    ApsidesPkg(pkg_save).collate_apsides(
+        savefile=pkg_coll, verbose=False
     )
-    with h5py.File(ref_coll) as a, h5py.File(tpu_coll) as b:
+    with h5py.File(ref_coll) as a, h5py.File(pkg_coll) as b:
         assert sorted(a.keys()) == sorted(b.keys())
         for k in a:
             for ds in ("particle_IDs", "pericenter_counts", "halo_offsets",
@@ -138,7 +138,7 @@ def test_collation_matches_reference(both_runs):
 def test_collation_subset_and_midpoint_matches_reference(both_runs):
     """collate_apsides with an explicit halo_ids subset and a
     mid-sequence snapshot_number — the non-default arguments."""
-    ref_save, tpu_save, tmp, Apsides_ref = both_runs
+    ref_save, pkg_save, tmp, Apsides_ref = both_runs
     import h5py as h5
 
     with h5.File(ref_save) as hf:
@@ -146,17 +146,17 @@ def test_collation_subset_and_midpoint_matches_reference(both_runs):
         mid_snap = int(keys[len(keys) // 2].split("_")[1])
 
     ref_coll = tmp + "/ref_sub.h5"
-    tpu_coll = tmp + "/tpu_sub.h5"
+    pkg_coll = tmp + "/pkg_sub.h5"
     subset = np.array([0, 2])
     Apsides_ref(ref_save).collate_apsides(
         halo_ids=subset, snapshot_number=mid_snap,
         angle_cut=0.05, savefile=ref_coll, verbose=False,
     )
-    ApsidesTPU(tpu_save).collate_apsides(
+    ApsidesPkg(pkg_save).collate_apsides(
         halo_ids=subset, snapshot_number=mid_snap,
-        angle_cut=0.05, savefile=tpu_coll, verbose=False,
+        angle_cut=0.05, savefile=pkg_coll, verbose=False,
     )
-    with h5.File(ref_coll) as a, h5.File(tpu_coll) as b:
+    with h5.File(ref_coll) as a, h5.File(pkg_coll) as b:
         assert sorted(a.keys()) == sorted(b.keys())
         for k in a:
             for ds in ("particle_IDs", "pericenter_counts",
@@ -167,18 +167,18 @@ def test_collation_subset_and_midpoint_matches_reference(both_runs):
 def test_final_counts_retro_matches_reference(both_runs):
     """save_final_counts retro-mapping parity (values; dtype is a
     documented improvement — the reference stores float64 counts)."""
-    ref_save, tpu_save, tmp, Apsides_ref = both_runs
+    ref_save, pkg_save, tmp, Apsides_ref = both_runs
     import h5py as h5
 
     ref_coll = tmp + "/ref_fin.h5"
-    tpu_coll = tmp + "/tpu_fin.h5"
+    pkg_coll = tmp + "/pkg_fin.h5"
     Apsides_ref(ref_save).collate_apsides(
         save_final_counts=True, savefile=ref_coll, verbose=False
     )
-    ApsidesTPU(tpu_save).collate_apsides(
-        save_final_counts=True, savefile=tpu_coll, verbose=False
+    ApsidesPkg(pkg_save).collate_apsides(
+        save_final_counts=True, savefile=pkg_coll, verbose=False
     )
-    with h5.File(ref_coll) as a, h5.File(tpu_coll) as b:
+    with h5.File(ref_coll) as a, h5.File(pkg_coll) as b:
         for k in sorted(a.keys())[:-1]:
             av = a[k]["pericenter_counts_final"][:]
             bv = b[k]["pericenter_counts_final"][:]
@@ -193,12 +193,12 @@ def test_apocentric_mode_matches_reference(reference_pkg, data,
     regions3, loader, snap_nums, branches = data
     tmp = tmp_path_factory.mktemp("apo")
     ref_save = str(tmp / "ref.h5")
-    tpu_save = str(tmp / "tpu.h5")
+    pkg_save = str(tmp / "pkg.h5")
     track_ref(snap_nums, branches, regions3, loader, ref_save,
               mode="apocentric", npool=None, verbose=False)
-    track_orbits_tpu(snap_nums, branches, regions3, loader, tpu_save,
+    track_orbits_pkg(snap_nums, branches, regions3, loader, pkg_save,
                      mode="apocentric", verbose=False)
-    with h5py.File(ref_save) as a, h5py.File(tpu_save) as b:
+    with h5py.File(ref_save) as a, h5py.File(pkg_save) as b:
         assert a.attrs["mode"] == b.attrs["mode"] == "apocentric"
         for k in a:
             assert np.array_equal(
@@ -222,7 +222,7 @@ def test_onthefly_matches_reference(reference_pkg, data, tmp_path_factory):
     finally:
         sys.path.remove("/root/reference")
 
-    from orbitanalysis_tpu import track_orbits_onthefly as otf_tpu
+    from orbitanalysis_tpu import track_orbits_onthefly as otf_pkg
 
     regions3, loader, snap_nums, branches = data
 
@@ -232,13 +232,13 @@ def test_onthefly_matches_reference(reference_pkg, data, tmp_path_factory):
     links = np.tile(np.arange(3), (2, 1))
     tmp = tmp_path_factory.mktemp("otf")
     ref_save = str(tmp / "ref_{}.h5")
-    tpu_save = str(tmp / "tpu_{}.h5")
+    pkg_save = str(tmp / "pkg_{}.h5")
     snap = 4
     otf_ref(snap, links, regions2, loader, ref_save, verbose=False)
-    otf_tpu(snap, links, regions2, loader, tpu_save, verbose=False)
+    otf_pkg(snap, links, regions2, loader, pkg_save, verbose=False)
 
     fa = ref_save.format("%0.3d" % snap)
-    fb = tpu_save.format("%0.3d" % snap)
+    fb = pkg_save.format("%0.3d" % snap)
     with h5py.File(fa) as a, h5py.File(fb) as b:
         for tag in ("pericenter", "entered", "departed"):
             offs_a = a[f"{tag}_offsets"][:]

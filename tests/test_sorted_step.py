@@ -38,17 +38,17 @@ def _ev_triplets(count, ids, angles):
     return out
 
 
-def _run_pair(snaps, n_halos, cap, box, mode, K, merge_impl="lax_sort",
-              compact_impl="lax_sort", id_dtype=jnp.int32, fused=False):
+def _run_pair(snaps, n_halos, cap, box, mode, K, id_dtype=jnp.int32,
+              presorted=False):
+    from orbitanalysis_tpu.ops.sorted_step import presort_snapshot
+
     step_g = jax.jit(
         make_orbit_step(mode=mode, box_size=box, event_capacity=K,
                         id_dtype=id_dtype)
     )
     step_s = jax.jit(
         make_sorted_orbit_step(K, mode=mode, box_size=box,
-                               merge_impl=merge_impl,
-                               compact_impl=compact_impl,
-                               id_dtype=id_dtype, fused=fused)
+                               id_dtype=id_dtype)
     )
     carry_g = init_carry(n_halos, cap, id_dtype=id_dtype)
     carry_s = init_sorted_carry(n_halos, cap, id_dtype=id_dtype)
@@ -65,7 +65,8 @@ def _run_pair(snaps, n_halos, cap, box, mode, K, merge_impl="lax_sort",
             bulk_vel=None, hubble_drag=0.0,
         )
         carry_g, ev_g = step_g(carry_g, batch)
-        carry_s, ev_s = step_s(carry_s, batch)
+        carry_s, ev_s = step_s(
+            carry_s, presort_snapshot(batch) if presorted else batch)
 
         got = _ev_triplets(ev_s.count, ev_s.ids, ev_s.angles)
         exp = _ev_triplets(ev_g.ev_count, ev_g.ev_ids, ev_g.ev_angles)
@@ -93,32 +94,16 @@ def _run_pair(snaps, n_halos, cap, box, mode, K, merge_impl="lax_sort",
             )
 
 
-@pytest.mark.parametrize("merge_impl,compact_impl", [
-    ("lax_sort", "lax_sort"),
-    ("pallas", "lax_sort"),
-    ("lax_sort", "pallas"),
-    ("pallas", "pallas"),
-])
+@pytest.mark.parametrize("presorted", [False, True])
 @pytest.mark.parametrize("mode", ["pericentric", "apocentric"])
-def test_sorted_step_matches_general_on_churn(mode, merge_impl,
-                                              compact_impl):
+def test_sorted_step_matches_general_on_churn(mode, presorted):
+    """Load-order rows and ID-sorted staged rows (the tracker's sorted
+    engine staging) both give the general step's events and carry."""
     n_halos, n_part, n_snap = 3, 150, 8
     box = 60.0
     snaps, _ = churn_snapshots(n_halos, n_part, n_snap, box_size=box, seed=3)
     cap = round_up(n_part)
-    _run_pair(snaps, n_halos, cap, box, mode, K=cap, merge_impl=merge_impl,
-              compact_impl=compact_impl)
-
-
-@pytest.mark.parametrize("mode", ["pericentric", "apocentric"])
-def test_sorted_step_fused_kernel(mode):
-    """The single fused merge+detect+compact kernel must match the
-    general step exactly (events and carry)."""
-    n_halos, n_part, n_snap = 3, 150, 8
-    box = 60.0
-    snaps, _ = churn_snapshots(n_halos, n_part, n_snap, box_size=box, seed=4)
-    cap = round_up(n_part)
-    _run_pair(snaps, n_halos, cap, box, mode, K=cap, fused=True)
+    _run_pair(snaps, n_halos, cap, box, mode, K=cap, presorted=presorted)
 
 
 @pytest.mark.slow
@@ -134,11 +119,9 @@ def test_sorted_step_soa_staging_matches_aos():
     cap = round_up(n_part)
     K = cap
     step_a = jax.jit(make_sorted_orbit_step(
-        K, mode="pericentric", box_size=box, fused=True,
-        cur_presorted=True))
+        K, mode="pericentric", box_size=box))
     step_s = jax.jit(make_sorted_orbit_step(
-        K, mode="pericentric", box_size=box, fused=True,
-        cur_presorted=True, soa_batch=True))
+        K, mode="pericentric", box_size=box, soa_batch=True))
     carry_a = init_sorted_carry(n_halos, cap)
     carry_b = init_sorted_carry(n_halos, cap)
     for snap in snaps:
@@ -161,13 +144,11 @@ def test_sorted_step_soa_staging_matches_aos():
             np.asarray(carry_a.ids), np.asarray(carry_b.ids))
 
 
-@pytest.mark.parametrize("merge_impl,compact_impl", [
-    ("pallas", "pallas"),
-    ("lax_sort", "lax_sort"),
-])
-def test_sorted_step_presorted_staging(merge_impl, compact_impl):
-    """ID-sorted staged rows + slot channel give the identical event
-    stream (reference load order) as load-order rows."""
+@pytest.mark.parametrize("soa", [False, True])
+def test_sorted_step_presorted_staging(soa):
+    """ID-sorted staged rows + slot channel (AoS or SoA staging) give
+    the identical event stream (reference load order) as load-order
+    rows."""
     from orbitanalysis_tpu.ops.sorted_step import presort_snapshot
 
     n_halos, n_part, n_snap = 3, 150, 8
@@ -181,9 +162,7 @@ def test_sorted_step_presorted_staging(merge_impl, compact_impl):
     )
     step_s = jax.jit(
         make_sorted_orbit_step(K, mode="pericentric", box_size=box,
-                               merge_impl=merge_impl,
-                               compact_impl=compact_impl,
-                               cur_presorted=True)
+                               soa_batch=soa)
     )
     carry_g = init_carry(n_halos, cap)
     carry_s = init_sorted_carry(n_halos, cap)
@@ -194,7 +173,7 @@ def test_sorted_step_presorted_staging(merge_impl, compact_impl):
             bulk_vel=None, hubble_drag=0.0,
         )
         carry_g, ev_g = step_g(carry_g, batch)
-        staged = presort_snapshot(batch)
+        staged = presort_snapshot(batch, soa=soa)
         assert np.all(np.diff(staged.ids.astype(np.int64), axis=-1) >= 0)
         carry_s, ev_s = step_s(carry_s, staged)
         got = _ev_triplets(ev_s.count, ev_s.ids, ev_s.angles)
@@ -252,10 +231,9 @@ def test_sorted_step_fuzz(seed):
 @pytest.mark.slow
 @pytest.mark.parametrize("mode", ["pericentric", "apocentric"])
 def test_sorted_step_static_membership_fast_path(mode):
-    """Fixed membership (ids identical step-to-step) routes through the
-    aligned static kernel under fused+presorted — events and carry must
-    match the general step exactly.  A churn snapshot mid-sequence must
-    switch back to the general join and stay correct."""
+    """Fixed membership (ids identical step-to-step) with ID-sorted
+    staging — events and carry must match the general step exactly,
+    also across a churn snapshot mid-sequence."""
     from orbitanalysis_tpu.ops.sorted_step import presort_snapshot
 
     rng = np.random.default_rng(77)
@@ -293,8 +271,7 @@ def test_sorted_step_static_membership_fast_path(mode):
         make_orbit_step(mode=mode, box_size=box, event_capacity=K)
     )
     step_s = jax.jit(
-        make_sorted_orbit_step(K, mode=mode, box_size=box,
-                               fused=True, cur_presorted=True)
+        make_sorted_orbit_step(K, mode=mode, box_size=box)
     )
     carry_g = init_carry(n_halos, cap)
     carry_s = init_sorted_carry(n_halos, cap)
